@@ -26,6 +26,12 @@ STD = 0.5
 # Embedding / latent dimensionality.
 EMB_SIZE = 512
 
+# Attack surface: loss types, optimisers and attack names of the attack CLI.
+LOSS_TYPES = ["away", "nearest", "diff", "xent", "dlr"]
+OPTIMS = ["Adam", "SGD", "RMSProp"]
+ATTACKS = ["fab-t", "fab", "apgd-ce", "apgd-dlr", "apgd-t", "manual",
+           "square", "autoattack", "autoattack-rand", "autoattack-plus"]
+
 # StyleGAN inference settings.
 STYLEGAN_TRUNCATION_PSI = 0.7
 STYLEGAN_TRUNCATION_LAYERS = 8

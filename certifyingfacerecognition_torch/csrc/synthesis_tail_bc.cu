@@ -5,33 +5,63 @@
 //
 // Replaces the Pallas kernels of certifyingfacerecognition_tpu/ops/
 // synthesis_tail_bc.py:
-//   cfr_up_fused     <- _up_fused    -> _up_stream_kernel        (l.1205/931)
-//   cfr_conv_fused   <- _conv_fused  -> _conv_stream_kernel      (l.1243/1115)
-//   cfr_final_stats  <- _final_stats -> _conv_stats_stream_kernel(l.1279/1145)
-//   cfr_final_apply  <- _final_apply -> _conv_rgb_stream_kernel  (l.1312/1172)
+//   cfr_up_fused       <- _up_fused    -> _up_stream_kernel        (l.1205/931)
+//   cfr_conv_fused     <- _conv_fused  -> _conv_stream_kernel      (l.1243/1115)
+//   cfr_final_stats    <- _final_stats -> _conv_stats_stream_kernel(l.1279/1145)
+//   cfr_final_apply    <- _final_apply -> _conv_rgb_stream_kernel  (l.1312/1172)
+// and the two passes of the standalone half-layers (the layer's own
+// instnorm + AdaIN applied by the producer, no input affine):
+//   cfr_conv_stats     <- _conv_impl -> _conv_stats_kernel         (l.501/413)
+//   cfr_conv_apply     <- _conv_impl -> _conv_apply_kernel         (l.501/435)
+//   cfr_conv_rgb_apply <- _conv_impl -> _conv_rgb_apply_kernel     (l.501/453)
+//   cfr_up_stats       <- _up_impl   -> _up_stats_kernel           (l.625/577)
+//   cfr_up_apply       <- _up_impl   -> _up_apply_kernel           (l.625/594)
+// The standalone passes are the chain kernels' device code in other modes
+// (MODE_STATS / MODE_APPLY / MODE_RGB with apply_aff = 0).
 //
 // Layout (as in the JAX package): activations [H, W, C, B] with the sample
-// axis B innermost, image [3, H, W, B], sums/affines [2, C, B] in f32,
-// weights HWIO [kh, kw, Ci, Co] (passed as f32 holding values already
-// rounded to the activation type), noise+bias nb [H, W, Co] in the
-// activation type.
+// axis B innermost, image [3, H, W, B], affines [2, C, B] in f32, sums
+// [2, C, B] in int64 fixed point (below), weights HWIO [kh, kw, Ci, Co]
+// (passed as f32 holding values already rounded to the activation type),
+// noise+bias nb [H, W, Co] in the activation type.
 //
 // Design. One block holds 32 consecutive samples on threadIdx.x (one warp
 // spans the samples of one pixel, so activation loads and stores coalesce
 // and every lane of a warp reads the same weight address) and NY workers on
 // threadIdx.y that split the pixels of a tile. Blocks stride over tiles, so
 // the per-block sums live in shared memory for the whole kernel and reach
-// the [2, C, B] output with one atomicAdd per (channel, sample) per block;
-// the atomics make the summation order differ from run to run.
+// the [2, C, B] output with one atomicAdd per (channel, sample) per block.
+// The sums are deterministic: every sum whose order depends on scheduling
+// (the workers' adds into shared memory, the blocks' into the output) is
+// fixed point (int64, units of 2^-20), where addition is associative; the
+// up kernel first adds each thread's terms of a tile in f32, in order.
+// Each fixed-point term rounds by at most 2^-21, and the range holds
+// |sum t^2| < 2^43, i.e. an rms |t| below ~2900 over 1024^2 pixels. The
+// staged input affine is held in T (its values are rounded to T), which
+// keeps the up kernel's shared memory (bf16, Ci = 64) within three
+// blocks per SM.
 //
 // What bounds these kernels on an H100: the bytes they must move are
 // 3.2-6.4 GB per layer at B = 128 (~1-2 ms at 3.35 TB/s) and their MACs fit
-// the bf16 tensor cores in well under that, so the roofline bound is bytes.
+// the bf16 tensor cores in well under that, so the roofline bound is bytes
+// for every launch but one: the up layer's stats pass at 512^2 writes only
+// its sums, so its 0.55 TFLOP of MACs (0.56 ms) outweigh its 1.07 GB read.
 // This first version runs the MACs as f32 FMAs on the CUDA cores (about 15x
 // below the tensor-core rate), so it is bound by instruction issue, not by
 // memory; it keeps every intermediate (the un-blurred deconv, the 1024^2
 // 16-channel activation of the last layer) out of device memory, which is
 // what the chain design is for. Moving the MACs to wgmma is later work.
+// Bounds of one launch at B = 128 on an H100 SXM (3.35 TB/s, 989 TFLOP/s
+// bf16; chip_smoke.py bound()), at the 1024^2 FFHQ tail's shapes:
+//   cfr_up_fused        up512 0.97 ms, up1024 1.93 ms (bytes)
+//   cfr_conv_fused      conv512 1.29 ms (bytes)
+//   cfr_final_stats     conv1024 1.29 ms (bytes)
+//   cfr_final_apply     conv1024 1.53 ms (bytes)
+//   cfr_conv_stats      conv512 0.65 ms, conv1024 1.29 ms (bytes)
+//   cfr_conv_apply      conv512 1.29 ms (bytes)
+//   cfr_conv_rgb_apply  conv1024 1.53 ms (bytes)
+//   cfr_up_stats        up512 0.56 ms (operations), up1024 0.65 ms (bytes)
+//   cfr_up_apply        up512 0.97 ms, up1024 1.93 ms (bytes)
 //
 // Rounding points reproduce the Pallas kernels in bf16: the input affine
 // x*a+off is evaluated in the activation type, the deconv accumulates in
@@ -52,6 +82,13 @@ constexpr int UT = 8;       // up kernel: output tile edge
 constexpr int UCC = 8;      // up kernel: output channels per deconv pass
 constexpr int CC = 16;      // conv kernels: output channels per pass
 constexpr int MAX_BLOCKS = 2048;
+constexpr float SUM_SCALE = 1048576.f;   // 2^20 fixed-point units per 1.0
+typedef unsigned long long acc_t;        // two's-complement int64 sums
+
+// One fixed-point term of the sums.
+__device__ __forceinline__ acc_t to_fixed(float v) {
+  return (acc_t)__float2ll_rn(v * SUM_SCALE);
+}
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -103,10 +140,11 @@ __device__ __forceinline__ void load_w(const float* __restrict__ p,
 }
 
 // Stage the input affine of this block's 32 samples ([2][Ci][LANES], values
-// rounded to T; identity when apply_aff == 0) and zero the sums.
+// rounded to T; identity when apply_aff == 0) and zero the block's sums
+// [2][Co][LANES]; then synchronise.
 template <typename T>
-__device__ void setup_shared(const float* __restrict__ aff, float* aff_s,
-                             float* red_s, int Ci, int Co, int B,
+__device__ void setup_shared(const float* __restrict__ aff, T* aff_s,
+                             acc_t* red_s, int Ci, int Co, int B,
                              int apply_aff) {
   const int tid = threadIdx.y * LANES + threadIdx.x;
   for (int i = tid; i < 2 * Ci * LANES; i += LANES * NY) {
@@ -114,14 +152,14 @@ __device__ void setup_shared(const float* __restrict__ aff, float* aff_s,
     const int c = (i / LANES) % Ci;
     const int bb = blockIdx.x * LANES + i % LANES;
     float v = which == 0 ? 1.f : 0.f;
-    if (apply_aff && bb < B) v = rnd<T>(aff[(which * Ci + c) * B + bb]);
-    aff_s[i] = v;
+    if (apply_aff && bb < B) v = aff[(which * Ci + c) * B + bb];
+    aff_s[i] = from_f<T>(v);
   }
-  for (int i = tid; i < 2 * Co * LANES; i += LANES * NY) red_s[i] = 0.f;
+  for (int i = tid; i < 2 * Co * LANES; i += LANES * NY) red_s[i] = 0;
   __syncthreads();
 }
 
-__device__ void flush_sums(const float* red_s, float* __restrict__ sums,
+__device__ void flush_sums(const acc_t* red_s, acc_t* __restrict__ sums,
                            int Co, int B) {
   __syncthreads();
   const int tid = threadIdx.y * LANES + threadIdx.x;
@@ -133,26 +171,41 @@ __device__ void flush_sums(const float* red_s, float* __restrict__ sums,
   }
 }
 
-enum { MODE_T = 0, MODE_STATS = 1, MODE_RGB = 2 };
+enum { MODE_T = 0, MODE_STATS = 1, MODE_RGB = 2, MODE_APPLY = 3 };
+
+// The layer's own affine on t: rnd_T(t * a_c + off_c) (two f32 roundings,
+// no FMA contraction, as the plain version computes it).
+template <typename T>
+__device__ __forceinline__ float own_affine(float t, const float* coefs,
+                                            int co, int Co, int B, int b) {
+  return rnd<T>(__fadd_rn(__fmul_rn(t, coefs[co * B + b]),
+                          coefs[(Co + co) * B + b]));
+}
 
 // 3x3 conv (zero padding) of aff(x), then +nb and lrelu in f32.
 //   MODE_T:     write t [H, W, Co, B], accumulate sums [2, Co, B]
 //   MODE_STATS: accumulate sums only
-//   MODE_RGB:   out = rnd_T(t * a_c + off_c) with this layer's own affine
-//               coefs [2, Co, B]; image[r] = sum_c out * wrgb[c, r] + brgb[r]
-template <typename T, int MODE>
-__global__ void __launch_bounds__(LANES* NY)
+//   MODE_APPLY: write out = own_affine(t) [H, W, Co, B] with this layer's
+//               coefs [2, Co, B]; no sums
+//   MODE_RGB:   out = own_affine(t); image[r] = sum_c out * wrgb[c, r] +
+//               brgb[r], written [3, H, W, B]
+// AFF: whether the input affine is applied (a template parameter, so that
+// each variant gets its own code for the inner loop).
+// At least 3 blocks per SM: up to 80 registers per thread (one variant
+// spilled to local memory at 64 without the hint).
+template <typename T, int MODE, bool AFF>
+__global__ void __launch_bounds__(LANES* NY, 3)
     conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ k,
                    const T* __restrict__ nb, const float* __restrict__ aff,
                    const float* __restrict__ coefs,
                    const float* __restrict__ wrgb,
                    const float* __restrict__ brgb, T* __restrict__ out,
-                   float* __restrict__ sums, int H, int W, int Ci, int Co,
-                   int B, int apply_aff, int tile_px) {
-  extern __shared__ float smem[];
-  float* aff_s = smem;                    // [2][Ci][LANES]
-  float* red_s = smem + 2 * Ci * LANES;   // [2][Co][LANES]
-  setup_shared<T>(aff, aff_s, red_s, Ci, Co, B, apply_aff);
+                   acc_t* __restrict__ sums, int H, int W, int Ci, int Co,
+                   int B, int tile_px) {
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  acc_t* red_s = reinterpret_cast<acc_t*>(smem_raw);     // [2][Co][LANES]
+  T* aff_s = reinterpret_cast<T*>(red_s + 2 * Co * LANES);  // [2][Ci][LANES]
+  setup_shared<T>(aff, aff_s, red_s, Ci, Co, B, AFF);
 
   const int lane = threadIdx.x;
   const int b = blockIdx.x * LANES + lane;
@@ -180,9 +233,9 @@ __global__ void __launch_bounds__(LANES* NY)
             const float* kp = k + (size_t)(dy * 3 + dx) * Ci * Co + c0;
             for (int ci = 0; ci < Ci; ++ci) {
               float v = to_f(xp[(size_t)ci * B]);
-              if (apply_aff)
-                v = affine<T>(v, aff_s[ci * LANES + lane],
-                              aff_s[(Ci + ci) * LANES + lane]);
+              if (AFF)
+                v = affine<T>(v, to_f(aff_s[ci * LANES + lane]),
+                              to_f(aff_s[(Ci + ci) * LANES + lane]));
               float wv[CC];
               load_w<CC>(kp + (size_t)ci * Co, wv);
 #pragma unroll
@@ -196,15 +249,18 @@ __global__ void __launch_bounds__(LANES* NY)
           const float t =
               lrelu(__fadd_rn(acc[j], to_f(nb[(size_t)p * Co + co])));
           if (MODE == MODE_RGB) {
-            const float o = rnd<T>(__fadd_rn(__fmul_rn(t, coefs[co * B + b]),
-                                             coefs[(Co + co) * B + b]));
+            const float o = own_affine<T>(t, coefs, co, Co, B, b);
 #pragma unroll
             for (int r = 0; r < 3; ++r) rgb[r] = fmaf(o, wrgb[co * 3 + r], rgb[r]);
+          } else if (MODE == MODE_APPLY) {
+            out[((size_t)p * Co + co) * B + b] =
+                from_f<T>(own_affine<T>(t, coefs, co, Co, B, b));
           } else {
             if (MODE == MODE_T)
               out[((size_t)p * Co + co) * B + b] = from_f<T>(t);
-            atomicAdd(&red_s[co * LANES + lane], t);
-            atomicAdd(&red_s[(Co + co) * LANES + lane], __fmul_rn(t, t));
+            atomicAdd(&red_s[co * LANES + lane], to_fixed(t));
+            atomicAdd(&red_s[(Co + co) * LANES + lane],
+                      to_fixed(__fmul_rn(t, t)));
           }
         }
       }
@@ -216,29 +272,34 @@ __global__ void __launch_bounds__(LANES* NY)
       }
     }
   }
-  if (MODE != MODE_RGB) flush_sums(red_s, sums, Co, B);
+  if (MODE == MODE_T || MODE == MODE_STATS) flush_sums(red_s, sums, Co, B);
 }
 
 // Up layer: t = lrelu(blur3x3(convT4x4,s2(aff(x))) + nb) on the 2H x 2W
-// grid, written raw, plus sums. The transposed conv is the lhs-dilated
+// grid.
+//   MODE_T:     write t raw [2H, 2W, Co, B], accumulate sums [2, Co, B]
+//   MODE_STATS: accumulate sums only
+//   MODE_APPLY: write own_affine(t) with this layer's coefs; no sums
+// The transposed conv is the lhs-dilated
 // forward conv of the JAX package (pad 2, dilation 2): output row o reads
 // input row m = (o + kh - 2) / 2 for the two kh with o + kh even. Each
 // tile of UT x UT outputs first deconvolves its (UT+2)^2 halo region for
 // UCC channels into shared memory (zero outside the 2H x 2W grid: the blur
-// sees zero padding there), then blurs from it.
-template <typename T>
+// sees zero padding there), then blurs from it. AFF as in conv3x3_kernel.
+template <typename T, int MODE, bool AFF>
 __global__ void __launch_bounds__(LANES* NY)
     up_kernel(const T* __restrict__ x, const float* __restrict__ k4,
               const T* __restrict__ nb, const float* __restrict__ aff,
-              T* __restrict__ out, float* __restrict__ sums, int H, int W,
-              int Ci, int Co, int B, int apply_aff) {
+              const float* __restrict__ coefs, T* __restrict__ out,
+              acc_t* __restrict__ sums, int H, int W, int Ci, int Co,
+              int B) {
   constexpr int YR = UT + 2;
   constexpr int NPOS = YR * YR;
-  extern __shared__ float smem[];
-  float* aff_s = smem;                     // [2][Ci][LANES]
-  float* red_s = aff_s + 2 * Ci * LANES;   // [2][Co][LANES]
-  T* yb_s = reinterpret_cast<T*>(red_s + 2 * Co * LANES);  // [NPOS][UCC][LANES]
-  setup_shared<T>(aff, aff_s, red_s, Ci, Co, B, apply_aff);
+  extern __shared__ __align__(8) unsigned char smem_raw[];
+  acc_t* red_s = reinterpret_cast<acc_t*>(smem_raw);      // [2][Co][LANES]
+  T* aff_s = reinterpret_cast<T*>(red_s + 2 * Co * LANES);  // [2][Ci][LANES]
+  T* yb_s = aff_s + 2 * Ci * LANES;                        // [NPOS][UCC][LANES]
+  setup_shared<T>(aff, aff_s, red_s, Ci, Co, B, AFF);
 
   const int lane = threadIdx.x;
   const int b = blockIdx.x * LANES + lane;
@@ -268,9 +329,9 @@ __global__ void __launch_bounds__(LANES* NY)
               const float* kp = k4 + (size_t)(kh * 4 + kw) * Ci * Co + c0;
               for (int ci = 0; ci < Ci; ++ci) {
                 float v = to_f(xp[(size_t)ci * B]);
-                if (apply_aff)
-                  v = affine<T>(v, aff_s[ci * LANES + lane],
-                                aff_s[(Ci + ci) * LANES + lane]);
+                if (AFF)
+                  v = affine<T>(v, to_f(aff_s[ci * LANES + lane]),
+                                to_f(aff_s[(Ci + ci) * LANES + lane]));
                 float wv[UCC];
                 load_w<UCC>(kp + (size_t)ci * Co, wv);
 #pragma unroll
@@ -284,6 +345,10 @@ __global__ void __launch_bounds__(LANES* NY)
           yb_s[(pos * UCC + j) * LANES + lane] = from_f<T>(acc[j]);
       }
       __syncthreads();
+      // this thread's sums over its pixels of the tile, in order
+      float s1[UCC], s2[UCC];
+#pragma unroll
+      for (int j = 0; j < UCC; ++j) s1[j] = s2[j] = 0.f;
       for (int q = threadIdx.y; q < UT * UT; q += NY) {
         const int lr = q / UT, lc = q % UT;
         const int orow = r0 + lr, ocol = q0 + lc;
@@ -302,15 +367,27 @@ __global__ void __launch_bounds__(LANES* NY)
           const float hb = blur3<T>(v[0], v[1], v[2]);
           const int co = c0 + j;
           const float t = lrelu(__fadd_rn(hb, to_f(nb[op * Co + co])));
-          out[(op * Co + co) * B + b] = from_f<T>(t);
-          atomicAdd(&red_s[co * LANES + lane], t);
-          atomicAdd(&red_s[(Co + co) * LANES + lane], __fmul_rn(t, t));
+          if (MODE == MODE_APPLY) {
+            out[(op * Co + co) * B + b] =
+                from_f<T>(own_affine<T>(t, coefs, co, Co, B, b));
+            continue;
+          }
+          if (MODE == MODE_T) out[(op * Co + co) * B + b] = from_f<T>(t);
+          s1[j] = __fadd_rn(s1[j], t);
+          s2[j] = __fadd_rn(s2[j], __fmul_rn(t, t));
+        }
+      }
+      if (MODE != MODE_APPLY && active) {
+#pragma unroll
+        for (int j = 0; j < UCC; ++j) {
+          atomicAdd(&red_s[(c0 + j) * LANES + lane], to_fixed(s1[j]));
+          atomicAdd(&red_s[(Co + c0 + j) * LANES + lane], to_fixed(s2[j]));
         }
       }
       __syncthreads();
     }
   }
-  flush_sums(red_s, sums, Co, B);
+  if (MODE != MODE_APPLY) flush_sums(red_s, sums, Co, B);
 }
 
 int grid_y(int ntiles, int groups) {
@@ -320,10 +397,13 @@ int grid_y(int ntiles, int groups) {
 template <typename T, int MODE>
 int launch_conv(const void* x, const float* k, const void* nb,
                 const float* aff, const float* coefs, const float* wrgb,
-                const float* brgb, void* out, float* sums, int H, int W,
+                const float* brgb, void* out, acc_t* sums, int H, int W,
                 int Ci, int Co, int B, int apply_aff, cudaStream_t stream) {
-  auto kern = conv3x3_kernel<T, MODE>;
-  const int smem = (2 * Ci + 2 * Co) * LANES * (int)sizeof(float);
+  // the standalone apply pass never takes an input affine
+  auto kern = apply_aff ? conv3x3_kernel<T, MODE, MODE != MODE_APPLY>
+                        : conv3x3_kernel<T, MODE, false>;
+  const int smem = 2 * Co * LANES * (int)sizeof(acc_t) +
+                   2 * Ci * LANES * (int)sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -334,15 +414,14 @@ int launch_conv(const void* x, const float* k, const void* nb,
   dim3 block(LANES, NY);
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), k, static_cast<const T*>(nb), aff, coefs,
-      wrgb, brgb, static_cast<T*>(out), sums, H, W, Ci, Co, B, apply_aff,
-      tile_px);
+      wrgb, brgb, static_cast<T*>(out), sums, H, W, Ci, Co, B, tile_px);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
 int dispatch_conv(int dtype, const void* x, const float* k, const void* nb,
                   const float* aff, const float* coefs, const float* wrgb,
-                  const float* brgb, void* out, float* sums, int H, int W,
+                  const float* brgb, void* out, acc_t* sums, int H, int W,
                   int Ci, int Co, int B, int apply_aff, void* stream) {
   if (Co % CC != 0) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -356,13 +435,17 @@ int dispatch_conv(int dtype, const void* x, const float* k, const void* nb,
   return -2;
 }
 
-template <typename T>
+template <typename T, int MODE>
 int launch_up(const void* x, const float* k4, const void* nb,
-              const float* aff, void* out, float* sums, int H, int W,
-              int Ci, int Co, int B, int apply_aff, cudaStream_t stream) {
-  auto kern = up_kernel<T>;
-  const int smem = (2 * Ci + 2 * Co) * LANES * (int)sizeof(float) +
-                   (UT + 2) * (UT + 2) * UCC * LANES * (int)sizeof(T);
+              const float* aff, const float* coefs, void* out, acc_t* sums,
+              int H, int W, int Ci, int Co, int B, int apply_aff,
+              cudaStream_t stream) {
+  // only the chain's up layer (MODE_T) takes an input affine
+  auto kern = apply_aff ? up_kernel<T, MODE, MODE == MODE_T>
+                        : up_kernel<T, MODE, false>;
+  const int smem = 2 * Co * LANES * (int)sizeof(acc_t) +
+                   (2 * Ci + (UT + 2) * (UT + 2) * UCC) * LANES *
+                       (int)sizeof(T);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -371,9 +454,25 @@ int launch_up(const void* x, const float* k4, const void* nb,
   dim3 grid(groups, grid_y(ntiles, groups));
   dim3 block(LANES, NY);
   kern<<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), k4, static_cast<const T*>(nb), aff,
-      static_cast<T*>(out), sums, H, W, Ci, Co, B, apply_aff);
+      static_cast<const T*>(x), k4, static_cast<const T*>(nb), aff, coefs,
+      static_cast<T*>(out), sums, H, W, Ci, Co, B);
   return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch_up(int dtype, const void* x, const float* k4, const void* nb,
+                const float* aff, const float* coefs, void* out, acc_t* sums,
+                int H, int W, int Ci, int Co, int B, int apply_aff,
+                void* stream) {
+  if (Co % UCC != 0) return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return launch_up<__nv_bfloat16, MODE>(x, k4, nb, aff, coefs, out, sums,
+                                          H, W, Ci, Co, B, apply_aff, s);
+  if (dtype == 0)
+    return launch_up<float, MODE>(x, k4, nb, aff, coefs, out, sums, H, W,
+                                  Ci, Co, B, apply_aff, s);
+  return -2;
 }
 
 }  // namespace
@@ -381,26 +480,20 @@ int launch_up(const void* x, const float* k4, const void* nb,
 // Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // Each function launches on `stream`, does not synchronise, and returns the
 // cudaGetLastError() code of the launch (0 on success; -1 for Co not a
-// multiple of 8 (up) or 16 (conv), -2 for an unknown dtype). `sums` must be
-// zeroed by the caller.
+// multiple of 8 (up) or 16 (conv), -2 for an unknown dtype). `sums` is
+// int64 [2, Co, B] in units of 2^-20 (see the design note), zeroed by the
+// caller.
 extern "C" {
 
 int cfr_up_fused(int dtype, const void* x, const float* k4, const void* nb,
-                 const float* aff, void* out, float* sums, int H, int W,
+                 const float* aff, void* out, acc_t* sums, int H, int W,
                  int Ci, int Co, int B, int apply_aff, void* stream) {
-  if (Co % UCC != 0) return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_up<__nv_bfloat16>(x, k4, nb, aff, out, sums, H, W, Ci, Co,
-                                    B, apply_aff, s);
-  if (dtype == 0)
-    return launch_up<float>(x, k4, nb, aff, out, sums, H, W, Ci, Co, B,
-                            apply_aff, s);
-  return -2;
+  return dispatch_up<MODE_T>(dtype, x, k4, nb, aff, nullptr, out, sums, H, W,
+                             Ci, Co, B, apply_aff, stream);
 }
 
 int cfr_conv_fused(int dtype, const void* x, const float* k, const void* nb,
-                   const float* aff, void* out, float* sums, int H, int W,
+                   const float* aff, void* out, acc_t* sums, int H, int W,
                    int Ci, int Co, int B, int apply_aff, void* stream) {
   return dispatch_conv<MODE_T>(dtype, x, k, nb, aff, nullptr, nullptr,
                                nullptr, out, sums, H, W, Ci, Co, B,
@@ -408,7 +501,7 @@ int cfr_conv_fused(int dtype, const void* x, const float* k, const void* nb,
 }
 
 int cfr_final_stats(int dtype, const void* x, const float* k, const void* nb,
-                    const float* aff, float* sums, int H, int W, int Ci,
+                    const float* aff, acc_t* sums, int H, int W, int Ci,
                     int Co, int B, int apply_aff, void* stream) {
   return dispatch_conv<MODE_STATS>(dtype, x, k, nb, aff, nullptr, nullptr,
                                    nullptr, nullptr, sums, H, W, Ci, Co, B,
@@ -422,6 +515,46 @@ int cfr_final_apply(int dtype, const void* x, const float* k, const void* nb,
   return dispatch_conv<MODE_RGB>(dtype, x, k, nb, aff, coefs, wrgb, brgb,
                                  out, nullptr, H, W, Ci, Co, B, apply_aff,
                                  stream);
+}
+
+// The standalone half-layers: no input affine (apply_aff = 0).
+
+int cfr_conv_stats(int dtype, const void* x, const float* k, const void* nb,
+                   acc_t* sums, int H, int W, int Ci, int Co, int B,
+                   void* stream) {
+  return dispatch_conv<MODE_STATS>(dtype, x, k, nb, nullptr, nullptr,
+                                   nullptr, nullptr, nullptr, sums, H, W, Ci,
+                                   Co, B, 0, stream);
+}
+
+int cfr_conv_apply(int dtype, const void* x, const float* k, const void* nb,
+                   const float* coefs, void* out, int H, int W, int Ci,
+                   int Co, int B, void* stream) {
+  return dispatch_conv<MODE_APPLY>(dtype, x, k, nb, nullptr, coefs, nullptr,
+                                   nullptr, out, nullptr, H, W, Ci, Co, B, 0,
+                                   stream);
+}
+
+int cfr_conv_rgb_apply(int dtype, const void* x, const float* k,
+                       const void* nb, const float* coefs, const float* wrgb,
+                       const float* brgb, void* out, int H, int W, int Ci,
+                       int Co, int B, void* stream) {
+  return dispatch_conv<MODE_RGB>(dtype, x, k, nb, nullptr, coefs, wrgb, brgb,
+                                 out, nullptr, H, W, Ci, Co, B, 0, stream);
+}
+
+int cfr_up_stats(int dtype, const void* x, const float* k4, const void* nb,
+                 acc_t* sums, int H, int W, int Ci, int Co, int B,
+                 void* stream) {
+  return dispatch_up<MODE_STATS>(dtype, x, k4, nb, nullptr, nullptr, nullptr,
+                                 sums, H, W, Ci, Co, B, 0, stream);
+}
+
+int cfr_up_apply(int dtype, const void* x, const float* k4, const void* nb,
+                 const float* coefs, void* out, int H, int W, int Ci, int Co,
+                 int B, void* stream) {
+  return dispatch_up<MODE_APPLY>(dtype, x, k4, nb, nullptr, coefs, out,
+                                 nullptr, H, W, Ci, Co, B, 0, stream);
 }
 
 }  // extern "C"

@@ -51,8 +51,10 @@ def make_lat2embs(frs_method: str, resolution: int, dtype=torch.float32
 class FacePipeline:
     """Bundled generator + FRS + gallery. ``predict_fn_with_params`` gives
     the exact argmin-distance identity of the perturbed latents
-    w = z + p @ dirs. Parameters, directions and gallery are moved to ``device``; the
-    embeddings run under torch.inference_mode (forward only)."""
+    w = z + p @ dirs. Parameters, directions and gallery are moved to
+    ``device``; ``lat2embs`` and the predictions run under
+    torch.inference_mode (forward only). ``embed_fn`` itself stays
+    differentiable: the attack path calls it with grad enabled."""
 
     gen_params: Dict
     frm_params: Dict
@@ -79,11 +81,24 @@ class FacePipeline:
         self.embed_fn = make_lat2embs(self.frs_method, self.resolution,
                                       self.dtype)
 
-    def lat2embs(self, w) -> torch.Tensor:
-        """Embed latent codes [N, 512]."""
+    def lat2embs(self, w, chunk: int = 0) -> torch.Tensor:
+        """Embed latent codes [N, 512] (forward only); with ``chunk``, in
+        batches of that size, the last one zero-padded, to bound device
+        memory for large N."""
         w = torch.as_tensor(w, dtype=torch.float32, device=self.device)
         with torch.inference_mode():
-            return self.embed_fn(self.gen_params, self.frm_params, w)
+            if not chunk or w.shape[0] <= chunk:
+                return self.embed_fn(self.gen_params, self.frm_params, w)
+            outs = []
+            for s in range(0, w.shape[0], chunk):
+                batch = w[s:s + chunk]
+                n = batch.shape[0]
+                if n < chunk:
+                    batch = torch.cat([batch, batch.new_zeros(
+                        (chunk - n, batch.shape[1]))])
+                outs.append(self.embed_fn(self.gen_params, self.frm_params,
+                                          batch)[:n])
+            return torch.cat(outs)
 
     def predict_fn_with_params(self) -> Tuple[Callable, Dict]:
         """(fn, params) with fn(params, z [512], p [B, k]) -> predictions

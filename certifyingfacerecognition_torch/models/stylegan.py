@@ -4,11 +4,19 @@ certifyingfacerecognition_tpu/models/stylegan.py.
 Parameters are a nested dict of tensors with the JAX package's keys and
 layouts (HWIO kernels, [in, out] dense weights, [H, W, C] noise, the 4x4
 transposed-conv kernel precomputed in forward-conv form); activations are
-NCHW. Forward only.
+NCHW. The weights are frozen (requires_grad=False); gradients flow to the
+latents.
 
 bf16 runs the synthesis blocks from CFR_TAIL_MIN_RES (default 512, floor
 128) upward as the chain tail of ops/synthesis_tail_bc.py when CFR_TAIL=bc
 (hand-written CUDA kernels on the GPU); the f32 path always runs plain ops.
+
+With grad enabled (the attack path), every synthesis block on plain ops is
+rematerialised in the backward pass (one checkpoint per block), and a
+block whose input is >= 256^2 also checkpoints each of its two
+half-layers, the JAX package's memory discipline: the backward then holds
+one half-layer's activations instead of the whole 1024^2 synthesis. With
+grad off nothing is checkpointed.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import nn
 from ..constants import STYLEGAN_TRUNCATION_LAYERS, STYLEGAN_TRUNCATION_PSI
@@ -161,7 +170,8 @@ def synthesis_apply(params: Dict, wp: torch.Tensor, *, resolution: int,
     x = _epilogue(p0, x, wp[:, 0], dtype=dtype)
 
     for block_idx in range(1, min(len(channels), bc_first)):
-        x = _synthesis_block(syn, x, wp, block_idx=block_idx, dtype=dtype)
+        x = _remat(lambda x, wp, bi=block_idx: _synthesis_block(
+            syn, x, wp, block_idx=bi, dtype=dtype), x, wp)
 
     if bc_first <= n_blocks:
         return _synthesis_tail_bc(syn, x, wp, bc_first=bc_first,
@@ -216,34 +226,54 @@ def _synthesis_tail_bc(syn: Dict, x: torch.Tensor, wp: torch.Tensor, *,
     return img.permute(3, 0, 1, 2)                     # -> [B, 3, H, W]
 
 
+def _remat(fn, *args):
+    """fn(*args), recomputed in the backward pass when grad is enabled."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _up_half(p: Dict, x: torch.Tensor, w_layer: torch.Tensor, *, li: int,
+             dtype) -> torch.Tensor:
+    """Up-conv (or upsample + conv) + blur + epilogue of layer li."""
+    if is_fused_layer(li):
+        x = nn.upconv(x, p["tconv_kernel"].to(dtype))
+    elif dtype == torch.bfloat16:
+        # upsample + conv3x3 rewritten as one 4-tap stride-2 transposed
+        # conv (same math including the padding edges); kernel folded in
+        # f32, then cast. f32 keeps the literal op pair.
+        k4 = nn.nearest_up_conv3_as_tconv_kernel(
+            p["conv_weight"] * _wscale(x.shape[1] * 9))
+        x = nn.upconv(x, k4.to(dtype))
+    else:
+        x = nn.upsample_nearest_2x(x)
+        x = nn.conv2d(x, p["conv_weight"].to(dtype)) * _wscale(x.shape[1] * 9)
+    return _epilogue(p, nn.blur_3x3(x), w_layer, dtype=dtype)
+
+
+def _conv_half(p: Dict, x: torch.Tensor, w_layer: torch.Tensor, *,
+               dtype) -> torch.Tensor:
+    """3x3 conv + epilogue."""
+    x = nn.conv2d(x, p["conv_weight"].to(dtype)) * _wscale(x.shape[1] * 9)
+    return _epilogue(p, x, w_layer, dtype=dtype)
+
+
 def _synthesis_block(syn: Dict, x: torch.Tensor, wp: torch.Tensor, *,
                      block_idx: int, dtype) -> torch.Tensor:
-    """One resolution block: up-conv + blur + epilogue (absent for the
-    first block, whose layer0 is the learned constant), then conv +
-    epilogue."""
-    li = 2 * block_idx - 2
-    if li > 0:
-        p = syn[f"layer{li}"]
-        if is_fused_layer(li):
-            x = nn.upconv(x, p["tconv_kernel"].to(dtype))
-        elif dtype == torch.bfloat16:
-            # upsample + conv3x3 rewritten as one 4-tap stride-2 transposed
-            # conv (same math including the padding edges); kernel folded in
-            # f32, then cast. f32 keeps the literal op pair.
-            k4 = nn.nearest_up_conv3_as_tconv_kernel(
-                p["conv_weight"] * _wscale(x.shape[1] * 9))
-            x = nn.upconv(x, k4.to(dtype))
-        else:
-            x = nn.upsample_nearest_2x(x)
-            x = nn.conv2d(x, p["conv_weight"].to(dtype)) \
-                * _wscale(x.shape[1] * 9)
-        x = nn.blur_3x3(x)
-        x = _epilogue(p, x, wp[:, li], dtype=dtype)
+    """One resolution block: the up half (absent for the first block,
+    whose layer0 is the learned constant), then the conv half; each half
+    is its own checkpoint when the block's input is >= 256^2."""
+    big = x.shape[2] >= 256
 
-    li = 2 * block_idx - 1
-    p = syn[f"layer{li}"]
-    x = nn.conv2d(x, p["conv_weight"].to(dtype)) * _wscale(x.shape[1] * 9)
-    return _epilogue(p, x, wp[:, li], dtype=dtype)
+    def call(fn, *args):
+        return _remat(fn, *args) if big else fn(*args)
+
+    up, conv = 2 * block_idx - 2, 2 * block_idx - 1
+    if up > 0:
+        x = call(lambda x, w: _up_half(syn[f"layer{up}"], x, w, li=up,
+                                       dtype=dtype), x, wp[:, up])
+    return call(lambda x, w: _conv_half(syn[f"layer{conv}"], x, w,
+                                        dtype=dtype), x, wp[:, conv])
 
 
 def postprocess(images: torch.Tensor, min_val: float = -1.0,

@@ -25,11 +25,30 @@ def sq_euclidean_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(xx + yy - 2.0 * xy, min=0.0)
 
 
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt whose gradient is 0 where its input is 0 (the JAX package's
+    _safe_sqrt): at a sample's own gallery entry the distance can be
+    exactly 0 (PGD without random init), where the gradient of a plain
+    sqrt is inf and poisons the whole attack."""
+
+    @staticmethod
+    def forward(ctx, d2):
+        d = torch.sqrt(d2)
+        ctx.save_for_backward(d2, d)
+        return d
+
+    @staticmethod
+    def backward(ctx, grad):
+        d2, d = ctx.saved_tensors
+        pos = d2 > 0
+        return torch.where(pos, 0.5 / torch.where(pos, d, 1.0), 0.0) * grad
+
+
 def cdist(x: torch.Tensor, y: torch.Tensor, method: str = "insightface"
           ) -> torch.Tensor:
     """Distance matrix [B, N] with the metric of each FRS."""
     if method == "insightface":
-        return torch.sqrt(sq_euclidean_matmul(x, y))
+        return _SafeSqrt.apply(sq_euclidean_matmul(x, y))
     return 1.0 - x @ y.t()
 
 

@@ -1,7 +1,18 @@
-"""Host-side semantic geometry: boundary directions, projection matrices
-and the minimum-volume enclosing ellipsoids (the numpy part of
-certifyingfacerecognition_tpu/ops/geometry.py, in float64, run once per
-process)."""
+"""Semantic geometry (port of certifyingfacerecognition_tpu/ops/
+geometry.py): Sigma-norms, ellipsoid sampling and projection on the
+device, and the host part (boundary directions, projection matrices and
+the minimum-volume enclosing ellipsoids, numpy float64, run once per
+process).
+
+Projecting y onto {x : x^T A x <= c} solves (I + t A) x = y for the t >= 0
+with x^T A x = c. With A = V diag(lam) V^T that is, in the rotated basis
+y' = V^T y, f(t) = sum_i lam_i y'_i^2 / (1 + t lam_i)^2 - 1 (decreasing in
+t), solved by a batched bisection of fixed length; a dense ellipsoid is
+reduced to the diagonal case through one host eigendecomposition.
+
+The device matrices are f32; where the JAX package multiplies at
+Precision.HIGHEST the products here run in full f32 (TF32 off).
+"""
 
 from __future__ import annotations
 
@@ -12,8 +23,221 @@ from functools import lru_cache
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..constants import ATTRS
+
+# Bisection bracket and length of the JAX package: [float eps, 1e3], 64
+# halvings.
+_T_LO = 1e-12
+_T_HI = 1.0e3
+_BISECT_ITERS = 64
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in full f32 (TF32 off for the call)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+# ---------------------------------------------------------------------------
+# Sigma-norms
+# ---------------------------------------------------------------------------
+
+def sq_distance(A: torch.Tensor, x: torch.Tensor,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Batched bilinear form x^T A y (y defaults to x). x, y [B, d]; A
+    [d, d]. Returns [B]."""
+    if y is None:
+        y = x
+    return (matmul_f32(x, A) * y).sum(-1)
+
+
+def sq_distance_diag(a: torch.Tensor, x: torch.Tensor,
+                     y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Diagonal bilinear form sum_i a_i x_i y_i. x, y [B, d]; a [d]."""
+    prod = x * x if y is None else x * y
+    return matmul_f32(prod, a)
+
+
+@dataclass(frozen=True)
+class Ellipsoid:
+    """An origin-centred ellipsoid {x : x^T A x <= 1}: ``diag`` [d] for a
+    diagonal A; otherwise its eigendecomposition A = V diag(lam) V^T and
+    inv(chol(A)^T), computed on the host at construction."""
+
+    diag: Optional[torch.Tensor] = None        # [d] if A is diagonal
+    eigvals: Optional[torch.Tensor] = None     # [d] if A is dense
+    eigvecs: Optional[torch.Tensor] = None     # [d, d]
+    chol_inv_t_dense: Optional[torch.Tensor] = None
+
+    @property
+    def is_diag(self) -> bool:
+        return self.diag is not None
+
+    @property
+    def dim(self) -> int:
+        return (self.diag if self.is_diag else self.eigvals).shape[0]
+
+    @classmethod
+    def from_diag(cls, a, device="cpu") -> "Ellipsoid":
+        return cls(diag=torch.as_tensor(np.asarray(a, np.float32),
+                                        device=device))
+
+    @classmethod
+    def from_dense(cls, A, device="cpu") -> "Ellipsoid":
+        A = np.asarray(A, np.float64)
+        sym = (A + A.T) / 2.0
+        lam, V = np.linalg.eigh(sym)
+        chol = np.linalg.cholesky(sym)
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa
+                                        device=device)
+        return cls(eigvals=f32(lam), eigvecs=f32(V),
+                   chol_inv_t_dense=f32(np.linalg.inv(chol.T)))
+
+    def mat(self) -> torch.Tensor:
+        if self.is_diag:
+            return torch.diag(self.diag)
+        return matmul_f32(self.eigvecs * self.eigvals, self.eigvecs.t())
+
+    def sq_dist(self, x: torch.Tensor) -> torch.Tensor:
+        """x^T A x for x [B, d] -> [B]."""
+        if self.is_diag:
+            return sq_distance_diag(self.diag, x)
+        return sq_distance_diag(self.eigvals, matmul_f32(x, self.eigvecs))
+
+    def cholesky_inv_t(self) -> torch.Tensor:
+        """inv(chol(A)^T), the map from the unit ball to the ellipsoid."""
+        if self.is_diag:
+            return torch.diag(1.0 / torch.sqrt(self.diag))
+        return self.chol_inv_t_dense
+
+
+# ---------------------------------------------------------------------------
+# Batched ellipsoid projection
+# ---------------------------------------------------------------------------
+
+def _bisect_project_diag(y: torch.Tensor, a: torch.Tensor, c: float = 1.0
+                         ) -> Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """Project rows of y [B, d] onto {x: sum_i a_i x_i^2 <= c}. Rows inside
+    (or where the bracket does not straddle the root) are returned as they
+    are. Returns (projections [B, d], t [B], which_out [B] bool)."""
+    a = a / c
+    y2 = y * y
+
+    def f(t):                      # [B] -> [B], decreasing in t
+        inv = 1.0 / (1.0 + t[:, None] * a[None, :])
+        return (a[None, :] * inv * inv * y2).sum(-1) - 1.0
+
+    lo = torch.full(y.shape[:1], _T_LO, dtype=y.dtype, device=y.device)
+    hi = torch.full(y.shape[:1], _T_HI, dtype=y.dtype, device=y.device)
+    which_out = (f(lo) * f(hi)) < 0.0
+    for _ in range(_BISECT_ITERS):
+        mid = 0.5 * (lo + hi)
+        right = f(mid) > 0.0       # the root is to the right
+        lo, hi = torch.where(right, mid, lo), torch.where(right, hi, mid)
+    t = 0.5 * (lo + hi)
+    proj = y / (1.0 + t[:, None] * a[None, :])
+    return torch.where(which_out[:, None], proj, y), t, which_out
+
+
+def proj_ellipse(y: torch.Tensor, ell: Ellipsoid, c: float = 1.0
+                 ) -> torch.Tensor:
+    """Project rows of y [B, d] into the ellipsoid (identity if inside)."""
+    if ell.is_diag:
+        return _bisect_project_diag(y, ell.diag, c)[0]
+    outr = _bisect_project_diag(matmul_f32(y, ell.eigvecs), ell.eigvals, c)[0]
+    return matmul_f32(outr, ell.eigvecs.t())
+
+
+def proj_to_surface(v: torch.Tensor, ell: Ellipsoid) -> torch.Tensor:
+    """Scale rows of v [B, d] onto the ellipsoid surface (with the
+    reference's +1e-4 guard, which leaves them marginally inside)."""
+    return v / (torch.sqrt(ell.sq_dist(v))[:, None] + 1e-4)
+
+
+def proj2region(vs: torch.Tensor, proj_mat: Optional[torch.Tensor],
+                ell: Ellipsoid, to_subs: bool = True,
+                on_surface: bool = False, max_iters: int = 5
+                ) -> torch.Tensor:
+    """Project rows of vs [B, d] into (subspace intersect ellipsoid):
+    subspace projection, optional surface placement, ellipsoid projection,
+    ``max_iters`` alternating refinements, then any row still outside is
+    renormalised onto the surface."""
+    x = vs
+    if to_subs:
+        x = matmul_f32(x, proj_mat.t())
+    if on_surface:
+        x = proj_to_surface(x, ell)
+    x = proj_ellipse(x, ell)
+    for _ in range(max_iters):
+        x = proj_ellipse(x, ell)
+        if to_subs:
+            x = matmul_f32(x, proj_mat.t())
+    outside = (ell.sq_dist(x) > 1.0)[:, None]
+    return torch.where(outside, proj_to_surface(x, ell), x)
+
+
+# ---------------------------------------------------------------------------
+# Sampling and attack initialisation
+# ---------------------------------------------------------------------------
+
+def sample_ellipsoid(gen: torch.Generator, ell: Ellipsoid, n_vecs: int = 1
+                     ) -> torch.Tensor:
+    """Uniform samples from the ellipsoid interior [n_vecs, d]: a uniform
+    direction, radius U^(1/d), mapped through inv(chol(A)^T). The draws
+    come from ``gen`` on the CPU (so a seed gives the same samples on
+    every device) and move to the ellipsoid's device."""
+    n = ell.dim
+    vec = torch.randn((n, n_vecs), generator=gen, dtype=torch.float32)
+    vec = vec / torch.linalg.vector_norm(vec, dim=0, keepdim=True)
+    rad = torch.rand((n_vecs,), generator=gen, dtype=torch.float32)
+    vec = (vec * rad[None, :] ** (1.0 / n)).to(ell.cholesky_inv_t().device)
+    return matmul_f32(ell.cholesky_inv_t(), vec).t()
+
+
+def init_deltas(gen: torch.Generator, n_vecs: int, ell: Ellipsoid,
+                proj_mat: Optional[torch.Tensor] = None,
+                random_init: bool = True, lin_comb: bool = True,
+                on_surface: bool = True, emb_size: int = 512
+                ) -> torch.Tensor:
+    """Attack initialisation inside or on the feasible region: in the
+    reduced attribute space (dim ell.dim) with ``lin_comb``, otherwise in
+    the full latent space with a subspace projection."""
+    if not random_init:
+        dim = ell.dim if lin_comb else emb_size
+        device = (ell.diag if ell.is_diag else ell.eigvals).device
+        return torch.zeros((n_vecs, dim), dtype=torch.float32, device=device)
+    deltas = sample_ellipsoid(gen, ell, n_vecs)
+    if lin_comb:
+        if on_surface:
+            deltas = proj2region(deltas, None, ell, to_subs=False,
+                                 on_surface=True)
+        return deltas
+    return proj2region(deltas, proj_mat, ell, to_subs=True,
+                       on_surface=on_surface)
+
+
+def in_subs(v: torch.Tensor, proj_mat: torch.Tensor, atol: float = 1e-4
+            ) -> bool:
+    """True when every row of v [B, d] lies in the subspace."""
+    dists = torch.linalg.vector_norm(matmul_f32(v, proj_mat.t()) - v, dim=-1)
+    return bool((dists <= atol).all())
+
+
+def in_ellps(v: torch.Tensor, ell: Ellipsoid, atol: float = 1e-4) -> bool:
+    """True when every row of v [B, d] lies inside the ellipsoid."""
+    return bool((ell.sq_dist(v) <= 1.0 + atol).all())
+
+
+# ---------------------------------------------------------------------------
+# Host-side, run-once matrix construction (numpy, float64)
+# ---------------------------------------------------------------------------
 
 
 def mvee(points: np.ndarray, tol: float = 1e-3
@@ -123,23 +347,30 @@ def _get_projection_matrices_impl(dataset: str, gan_name: str,
 
 @dataclass(frozen=True)
 class RegionMatrices:
-    """Host (float32 numpy) bundle of the region matrices."""
+    """The region matrices as f32 tensors on one device."""
 
-    proj_mat: np.ndarray               # [512, 512]
-    ellipse_mat: np.ndarray            # [512, 512] dense ellipsoid matrix
-    dirs: np.ndarray                   # [512, k]
-    dirs_inv: np.ndarray               # pinv(dirs) [k, 512]
-    red_ellipse_diag: np.ndarray       # [k]
-    red_ellipse_diag_inv: np.ndarray   # [k]
+    proj_mat: torch.Tensor               # [512, 512]
+    ellipse_mat: torch.Tensor            # [512, 512] dense ellipsoid matrix
+    ellipse: Ellipsoid                   # the same, dense, for projection
+    dirs: torch.Tensor                   # [512, k]
+    dirs_inv: torch.Tensor               # pinv(dirs) [k, 512]
+    red_ellipse: Ellipsoid               # diagonal, k-dim
+    red_ellipse_diag: torch.Tensor       # [k]
+    red_ellipse_diag_inv: torch.Tensor   # [k]
 
 
 def get_all_matrices(attrs2drop: Sequence[str] = (), scale_factor: float = 1.0,
-                     boundaries_dir: Optional[str] = None) -> RegionMatrices:
+                     boundaries_dir: Optional[str] = None, device="cpu"
+                     ) -> RegionMatrices:
     proj_mat, ellipse_mat, dirs, red_diag, _ = get_projection_matrices(
         attrs2drop=attrs2drop, scale_factor=scale_factor,
         boundaries_dir=boundaries_dir)
-    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
+                                    device=device)
     return RegionMatrices(
-        proj_mat=f32(proj_mat), ellipse_mat=f32(ellipse_mat), dirs=f32(dirs),
-        dirs_inv=f32(np.linalg.pinv(dirs)), red_ellipse_diag=f32(red_diag),
+        proj_mat=f32(proj_mat), ellipse_mat=f32(ellipse_mat),
+        ellipse=Ellipsoid.from_dense(ellipse_mat, device), dirs=f32(dirs),
+        dirs_inv=f32(np.linalg.pinv(dirs)),
+        red_ellipse=Ellipsoid.from_diag(red_diag, device),
+        red_ellipse_diag=f32(red_diag),
         red_ellipse_diag_inv=f32(1.0 / red_diag))

@@ -34,6 +34,11 @@ _SIGNATURES = {
         "cfr_final_stats": [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_P],
         "cfr_final_apply": [_I, _P, _P, _P, _P, _P, _P, _P, _P] + [_I] * 6
         + [_P],
+        "cfr_conv_stats": [_I, _P, _P, _P, _P] + [_I] * 5 + [_P],
+        "cfr_conv_apply": [_I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+        "cfr_conv_rgb_apply": [_I] + [_P] * 7 + [_I] * 5 + [_P],
+        "cfr_up_stats": [_I, _P, _P, _P, _P] + [_I] * 5 + [_P],
+        "cfr_up_apply": [_I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
     },
 }
 

@@ -6,16 +6,31 @@ Runs straight through and raises (exit code != 0) on any failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a);
-3. each kernel of the bf16 synthesis tail against its plain PyTorch version
-   at the 1024^2 tail's shapes (B = 8), bf16 and f32, with and without the
-   input affine, and the whole kernel chain against a plain chain;
+3. each kernel of the synthesis tail against its plain PyTorch version at
+   the 1024^2 tail's shapes (B = 8), bf16 and f32: the four chain kernels
+   with and without the input affine, the five passes of the standalone
+   half-layers, and the whole kernel chain against a plain chain;
 4. each kernel's time at B = 128 (CUDA events, median of 5) beside its
    plain version's time, its roofline bound and the time of cuDNN's
    convolution of the same layer (the library yardstick);
-5. the main path: ``cfr-certify`` (cli.certify.main) at 1024^2 in bf16 with
-   CFR_TAIL=bc on four identities, launch counters zeroed just before and
-   read just after (every kernel must have launched), then the same run on
-   the plain bf16 path; images and embeddings are checked against f32.
+5. the certify path: ``cfr-certify`` (cli.certify.main) at 1024^2 in bf16
+   with CFR_TAIL=bc on four identities, launch counters zeroed just before
+   and read just after (every chain kernel must have launched), then the
+   same run on the plain bf16 path; images and embeddings are checked
+   against f32;
+6. the standalone tail 256^2 -> 1024^2 through the differentiable ops
+   (upconv_blur_epilogue_bc -> conv_epilogue_bc -> upconv_blur_epilogue_bc
+   -> conv_epilogue_rgb_bc): bf16 image against the plain references, the
+   f32 gradient against the plain references' gradient, every standalone
+   kernel launched;
+7. the attack path: ``cfr-attack-torch --attack-type manual`` (cli.
+   main_attack.main) at 1024^2, bf16, 48 identities, batch 48, with
+   CFR_TAIL=bc (chain counters > 0) and on plain bf16 ops (counters 0),
+   then --eval-files; artifacts, feasibility and re-verification checked;
+   the gradients of the attack loss and of an image loss with respect to
+   the deltas through the chain tail at B = 4, each held to f32 as closely
+   as the plain bf16 path's; seconds per PGD iteration (forward,
+   backward) at batch 48 for both paths.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -38,18 +53,23 @@ import torch.nn.functional as F
 # tensor-core FLOP/s.
 PEAK_BYTES = 3.35e12
 PEAK_BF16 = 989e12
+_TPU = "certifyingfacerecognition_tpu/ops/synthesis_tail_bc.py:"
 REPLACES = {
-    "up_fused": "certifyingfacerecognition_tpu/ops/synthesis_tail_bc.py:1205",
-    "conv_fused": "certifyingfacerecognition_tpu/ops/synthesis_tail_bc.py:1243",
-    "final_stats": "certifyingfacerecognition_tpu/ops/synthesis_tail_bc.py:1279",
-    "final_apply": "certifyingfacerecognition_tpu/ops/synthesis_tail_bc.py:1312",
+    "up_fused": _TPU + "1205", "conv_fused": _TPU + "1243",
+    "final_stats": _TPU + "1279", "final_apply": _TPU + "1312",
+    "conv_stats": _TPU + "413", "conv_apply": _TPU + "435",
+    "conv_rgb_apply": _TPU + "453", "up_stats": _TPU + "577",
+    "up_apply": _TPU + "594",
 }
+CHAIN = ("up_fused", "conv_fused", "final_stats", "final_apply")
+STANDALONE = ("conv_stats", "conv_apply", "conv_rgb_apply", "up_stats",
+              "up_apply")
 SOURCE = "certifyingfacerecognition_torch/csrc/synthesis_tail_bc.cu"
 # Kernel vs plain version: max |err| <= TOL * max |plain| (bf16: two bf16
 # ulps at the top of the range, for rounding flips of intermediates that
 # differ in the last f32 bit; f32: f32 summation order). Sums: each row
-# (sum t, sum t^2) against its own largest value, since f32 atomics sum in
-# another order on every run.
+# (sum t, sum t^2) against its own largest value, since the kernels sum in
+# another order than the plain version (and in 2^-20 fixed point).
 TOL = {torch.bfloat16: 2.0 ** -6, torch.float32: 1e-4}
 SUMS_TOL = 1e-4
 
@@ -86,12 +106,36 @@ def layer_inputs(kind, h, ci, co, b, dtype, gen):
         w_rgb=randn((co, 3), gen, co ** -0.5), b_rgb=randn((3,), gen, 0.1))
 
 
-def run_kernel(bc, name, a, apply_aff, plain=False):
+def run_kernel(bc, name, a, apply_aff=True, plain=False):
+    """One call of kernel ``name`` (or its plain version) on the layer
+    inputs ``a``; the standalone passes take no input affine."""
     fn = getattr(bc, name + "_ref" if plain else name)
-    args = (a["x"], a["k"], a["nb"], a["aff"])
-    if name == "final_apply":
-        args += (a["coefs"], a["w_rgb"], a["b_rgb"])
-    return fn(*args, apply_aff=apply_aff)
+    if name in CHAIN:
+        args = (a["x"], a["k"], a["nb"], a["aff"])
+        if name == "final_apply":
+            args += (a["coefs"], a["w_rgb"], a["b_rgb"])
+        return fn(*args, apply_aff=apply_aff)
+    args = (a["x"], a["k"], a["nb"])
+    if name.endswith("apply"):
+        args += (a["coefs"],)
+    if name == "conv_rgb_apply":
+        args += (a["w_rgb"], a["b_rgb"])
+    return fn(*args)
+
+
+def kernel_outputs(name, got, want, dtype):
+    """(what, kernel output, plain output, tolerance) per output: images
+    and activations to TOL, each row of the sums to SUMS_TOL."""
+    if name in ("up_fused", "conv_fused"):
+        outs, got, want = [("t", got[0], want[0], TOL[dtype])], got[1], \
+            want[1]
+    elif name.endswith("stats"):
+        outs = []
+    else:
+        return [("img" if "rgb" in name or name == "final_apply" else "out",
+                 got, want, TOL[dtype])]
+    return outs + [("s1", got[0], want[0], SUMS_TOL),
+                   ("s2", got[1], want[1], SUMS_TOL)]
 
 
 def max_err(got, want, tol):
@@ -102,48 +146,47 @@ def max_err(got, want, tol):
         err.max().item() <= tol * scale
 
 
-# (kernel, layer kind, input h, ci, co): the 1024^2 FFHQ tail's layers
+# (kernel, layer kind, input h, ci, co): the 1024^2 FFHQ tail's layers,
+# as the chain runs them and as the standalone half-layers run them
 LAYERS = [("up_fused", "up", 256, 64, 32), ("conv_fused", "conv", 512, 32, 32),
           ("up_fused", "up", 512, 32, 16),
           ("final_stats", "conv", 1024, 16, 16),
           ("final_apply", "conv", 1024, 16, 16)]
+STANDALONE_LAYERS = [
+    ("up_stats", "up", 256, 64, 32), ("up_apply", "up", 256, 64, 32),
+    ("conv_stats", "conv", 512, 32, 32), ("conv_apply", "conv", 512, 32, 32),
+    ("up_stats", "up", 512, 32, 16), ("up_apply", "up", 512, 32, 16),
+    ("conv_stats", "conv", 1024, 16, 16),
+    ("conv_rgb_apply", "conv", 1024, 16, 16)]
 
 
 def check_kernels(bc, gen):
     """Phase 3: every kernel against its plain version on the card."""
     worst = {}
-    for name, kind, h, ci, co in LAYERS:
+    cases = [(L, aff) for L in LAYERS for aff in (False, True)] + \
+        [(L, False) for L in STANDALONE_LAYERS]
+    for (name, kind, h, ci, co), apply_aff in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            for apply_aff in (False, True):
-                a = layer_inputs(kind, h, ci, co, 8, dtype, gen)
-                got = run_kernel(bc, name, a, apply_aff)
-                want = run_kernel(bc, name, a, apply_aff, plain=True)
-                torch.cuda.synchronize()
-                if name == "final_apply":
-                    outs = [("img", got, want, TOL[dtype])]
-                else:
-                    outs, s, sr = [], got, want
-                    if name != "final_stats":
-                        outs = [("t", got[0], want[0], TOL[dtype])]
-                        s, sr = got[1], want[1]
-                    outs += [("s1", s[0], sr[0], SUMS_TOL),
-                             ("s2", s[1], sr[1], SUMS_TOL)]
-                for what, g, w, tol in outs:
-                    mx, med, scale, ok = max_err(g, w, tol)
-                    log(f"check {name:11s} h={h:4d} {ci:2d}->{co:2d} "
-                        f"{str(dtype)[6:]:8s} aff={int(apply_aff)} {what:4s} "
-                        f"max|err| {mx:.3e} median {med:.3e} "
-                        f"max|plain| {scale:.3e} tol {tol:.1e}*max|plain| "
-                        f"{'ok' if ok else 'FAIL'}")
-                    if not ok:
-                        raise AssertionError(f"{name} disagrees with its "
-                                             f"plain version ({what})")
-                    # max_abs_err of a kernel: its main output in bf16
-                    # (the sums for final_stats, which writes nothing else)
-                    if dtype == torch.bfloat16 and \
-                            (what[0] != "s" or name == "final_stats"):
-                        worst[name] = max(worst.get(name, 0.0), mx)
-                del a, got, want
+            a = layer_inputs(kind, h, ci, co, 8, dtype, gen)
+            got = run_kernel(bc, name, a, apply_aff)
+            want = run_kernel(bc, name, a, apply_aff, plain=True)
+            torch.cuda.synchronize()
+            for what, g, w, tol in kernel_outputs(name, got, want, dtype):
+                mx, med, scale, ok = max_err(g, w, tol)
+                log(f"check {name:14s} h={h:4d} {ci:2d}->{co:2d} "
+                    f"{str(dtype)[6:]:8s} aff={int(apply_aff)} {what:4s} "
+                    f"max|err| {mx:.3e} median {med:.3e} "
+                    f"max|plain| {scale:.3e} tol {tol:.1e}*max|plain| "
+                    f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{name} disagrees with its "
+                                         f"plain version ({what})")
+                # max_abs_err of a kernel: its main output in bf16 (the
+                # sums for a stats pass, which writes nothing else)
+                if dtype == torch.bfloat16 and \
+                        (what[0] != "s" or name.endswith("stats")):
+                    worst[name] = max(worst.get(name, 0.0), mx)
+            del a, got, want
     return worst
 
 
@@ -169,8 +212,9 @@ def plain_chain(bc, x, blocks, eps=1e-8):
                               blk["w_rgb"], blk["b_rgb"])
 
 
-def check_chain(bc, gen, b=8):
-    """The 512^2 + 1024^2 chain through the kernels vs the plain chain."""
+def tail_blocks(gen, b):
+    """Random blocks of the 1024^2 tail (512^2 64->32, 1024^2 32->16) at
+    trained-like scales."""
     blocks, h = [], 256
     for cin, cout in ((64, 32), (32, 16)):
         blocks.append({
@@ -185,10 +229,23 @@ def check_chain(bc, gen, b=8):
         h *= 2
     blocks[-1]["w_rgb"] = randn((16, 3), gen, 0.25)
     blocks[-1]["b_rgb"] = randn((3,), gen, 0.1)
+    return blocks
+
+
+def check_chain(bc, gen, b=8):
+    """The 512^2 + 1024^2 chain through the kernels vs the plain chain;
+    two runs of the kernels must agree bit for bit."""
+    blocks = tail_blocks(gen, b)
     x = randn((256, 256, 64, b), gen, dtype=torch.bfloat16)
     got = bc.tail_chain_bc(x, blocks)
+    again = bc.tail_chain_bc(x, blocks)
     want = plain_chain(bc, x, blocks)
     torch.cuda.synchronize()
+    # the fixed-point sums make the kernels deterministic: a rerun gives the
+    # same bits (f32 atomics did not, and a re-verified adversary could
+    # flip)
+    if not torch.equal(got, again):
+        raise AssertionError("tail_chain_bc is not deterministic")
     err = (got.float() - want.float()).abs()
     log(f"check chain 256->1024 bf16 B={b}: image {tuple(got.shape)} "
         f"max|err| {err.max().item():.3e} mean {err.mean().item():.3e} "
@@ -197,6 +254,77 @@ def check_chain(bc, gen, b=8):
     # later layer; hold the mean error to a quarter bf16 ulp of the range.
     assert torch.isfinite(got).all() and got.shape == (3, 1024, 1024, b)
     assert err.mean().item() <= 2.0 ** -10 * want.float().abs().max().item()
+
+
+STYLES = ("up_s0p1", "up_s1", "conv_s0p1", "conv_s1")
+
+
+def standalone_tail(bc, x, blocks, eps=1e-8):
+    """The tail through the standalone differentiable ops."""
+    b0, b1 = blocks
+    y = bc.upconv_blur_epilogue_bc(x, b0["k4"], b0["up_nb"], b0["up_s0p1"],
+                                   b0["up_s1"], eps)
+    y = bc.conv_epilogue_bc(y, b0["k"], b0["conv_nb"], b0["conv_s0p1"],
+                            b0["conv_s1"], eps)
+    y = bc.upconv_blur_epilogue_bc(y, b1["k4"], b1["up_nb"], b1["up_s0p1"],
+                                   b1["up_s1"], eps)
+    return bc.conv_epilogue_rgb_bc(y, b1["k"], b1["conv_nb"],
+                                   b1["conv_s0p1"], b1["conv_s1"],
+                                   b1["w_rgb"], b1["b_rgb"], eps)
+
+
+def check_standalone_tail(bc, gen, b=8):
+    """Phase 6: the standalone half-layers 256^2 -> 1024^2, forward in bf16
+    (every standalone kernel must launch; the image must track the f32
+    plain references as closely as the bf16 plain references do) and the
+    f32 gradient with respect to x and the styles against the gradient
+    through the plain references. Returns the launch counts."""
+    blocks = tail_blocks(gen, b)
+    x = randn((256, 256, 64, b), gen)
+    bc.reset_launches()
+    img = standalone_tail(bc, x.bfloat16(), blocks)
+    torch.cuda.synchronize()
+    launches = {k: bc.LAUNCHES[k] for k in STANDALONE}
+    log(f"standalone tail launches: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"standalone kernels never launched: {missing}")
+    with torch.no_grad():
+        ref16 = bc._chain_ref(x.bfloat16(), blocks, 1e-8).float()
+        ref32 = bc._chain_ref(x, blocks, 1e-8)
+    err_k = (img.float() - ref32).abs().mean().item()
+    err_p = (ref16 - ref32).abs().mean().item()
+    log(f"check standalone tail bf16 B={b}: image {tuple(img.shape)} mean "
+        f"|err| vs f32 references: kernels {err_k:.3e}, plain bf16 "
+        f"references {err_p:.3e} (max|f32| "
+        f"{ref32.abs().max().item():.3e})")
+    assert torch.isfinite(img).all() and img.shape == (3, 1024, 1024, b)
+    assert err_k <= 1.5 * err_p + 1e-4
+
+    xg = x.clone().requires_grad_()
+    bg = [{k: v.clone().requires_grad_(k in STYLES) for k, v in blk.items()}
+          for blk in blocks]
+    leaves = [xg] + [blk[k] for blk in bg for k in STYLES]
+    cot = randn((3, 1024, 1024, b), gen)
+    got = torch.autograd.grad((standalone_tail(bc, xg, bg) * cot).sum(),
+                              leaves)
+    want = torch.autograd.grad((bc._chain_ref(xg, bg, 1e-8) * cot).sum(),
+                               leaves)
+    for name, g, w in zip(["x"] + [f"{k}[{i}]" for i in range(2)
+                                   for k in STYLES], got, want):
+        rel = ((g - w).abs().mean() / w.abs().mean()).item()
+        log(f"check standalone tail f32 gradient d/d{name}: mean|err| / "
+            f"mean|plain| {rel:.3e}, max|err| "
+            f"{(g - w).abs().max().item():.3e} of max|plain| "
+            f"{w.abs().max().item():.3e}")
+        # f32. The kernels' forward and the references' differ in f32
+        # rounding, so pre-activations within rounding of 0 (hundreds of
+        # them in the 1024^2 layers) take the other lrelu branch, and a
+        # style's gradient sums over every pixel: 1e-3 of the mean was
+        # measured for the first layer's s0p1 on an H100. A gradient routed
+        # to the wrong input or not at all is off by O(1).
+        assert torch.isfinite(g).all() and rel <= 1e-2
+    return launches
 
 
 def cuda_ms(fn, reps=5):
@@ -222,7 +350,7 @@ def library_call(name, a):
     x = a["x"].permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     k = a["k"].to(torch.bfloat16)
-    if name == "up_fused":
+    if name.startswith("up"):
         wt = torch.flip(k, (0, 1)).permute(2, 3, 0, 1).contiguous()
         return lambda: F.conv_transpose2d(x, wt, stride=2, padding=1)
     w = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -230,52 +358,67 @@ def library_call(name, a):
 
 
 def bound(name, h, ci, co, b):
-    """(bound_ms, bound_by, bytes read, bytes written) of one launch: the
-    least time for the bytes the kernel must move (inputs read once,
-    outputs written once; bf16 activations and nb, f32 weights, affines
-    and sums as the kernel takes them) and for its MACs on the bf16 tensor
-    cores (the up layer's transposed conv does 2x2 taps per output)."""
-    up = name == "up_fused"
+    """(bound_ms, bytes ms, operations ms, bytes read, bytes written) of
+    one launch: the least time for the bytes the kernel must move (inputs
+    read once, outputs written once; bf16 activations and nb, f32
+    weights, affines, coefs and sums as the kernel takes them) and for its
+    MACs on the bf16 tensor cores (the up layer's transposed conv does 2x2
+    taps per output). A standalone pass reads no input affine; a stats
+    pass writes only its sums."""
+    up = name.startswith("up")
     out_hw = (2 * h) ** 2 if up else h * h
     read = h * h * ci * b * 2 + (16 if up else 9) * ci * co * 4 \
-        + out_hw * co * 2 + 2 * ci * b * 4
-    write = {"up_fused": out_hw * co * b * 2 + 2 * co * b * 4,
-             "conv_fused": out_hw * co * b * 2 + 2 * co * b * 4,
-             "final_stats": 2 * co * b * 4,
-             "final_apply": 3 * out_hw * b * 2}[name]
+        + out_hw * co * 2 + (2 * ci * b * 4 if name in CHAIN else 0)
+    sums = 2 * co * b * 4
+    write = {"up_fused": out_hw * co * b * 2 + sums,
+             "conv_fused": out_hw * co * b * 2 + sums,
+             "final_stats": sums, "conv_stats": sums, "up_stats": sums,
+             "conv_apply": out_hw * co * b * 2,
+             "up_apply": out_hw * co * b * 2,
+             "final_apply": 3 * out_hw * b * 2,
+             "conv_rgb_apply": 3 * out_hw * b * 2}[name]
     flops = 2.0 * out_hw * b * (4 if up else 9) * ci * co
-    if name == "final_apply":
-        read += 2 * co * b * 4 + co * 3 * 4 + 3 * 4
+    if name.endswith("apply"):
+        read += 2 * co * b * 4                       # the coefs
+    if name in ("final_apply", "conv_rgb_apply"):
+        read += co * 3 * 4 + 3 * 4
         flops += 2.0 * out_hw * b * co * 3
     t_bytes = (read + write) / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16 * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), read, write
+    return max(t_bytes, t_ops), t_bytes, t_ops, read, write
 
 
 def time_kernels(bc, gen, gpu, b=128):
-    """Phase 4: kernel and plain-version times at the main path's batch."""
+    """Phase 4: kernel and plain-version times at the main path's batch.
+    A kernel launched at two shapes (up_fused, up_stats, up_apply,
+    conv_stats) reports the sum over its launches; its bound_by is the
+    larger of its summed byte time and summed operation time."""
     rec = {}
-    for name, kind, h, ci, co in LAYERS:
+    for name, kind, h, ci, co in LAYERS + STANDALONE_LAYERS:
         a = layer_inputs(kind, h, ci, co, b, torch.bfloat16, gen)
-        ms = cuda_ms(lambda: run_kernel(bc, name, a, True))
-        plain_ms = cuda_ms(lambda: run_kernel(bc, name, a, True, plain=True))
+        ms = cuda_ms(lambda: run_kernel(bc, name, a))
+        plain_ms = cuda_ms(lambda: run_kernel(bc, name, a, plain=True))
         library_ms = cuda_ms(library_call(name, a))
-        bms, by, rd, wr = bound(name, h, ci, co, b)
-        log(f"time {name:11s} h={h:4d} {ci:2d}->{co:2d} bf16 B={b}: kernel "
+        bms, tb, to, rd, wr = bound(name, h, ci, co, b)
+        by = "bytes" if tb >= to else "operations"
+        log(f"time {name:14s} h={h:4d} {ci:2d}->{co:2d} bf16 B={b}: kernel "
             f"{ms:.3f} ms, plain {plain_ms:.3f} ms, cuDNN conv alone "
             f"{library_ms:.3f} ms, bound {bms:.3f} ms ({by}: "
-            f"{rd / 1e9:.2f} GB read + {wr / 1e9:.2f} GB written) [{gpu}]")
-        # a kernel launched at two shapes per batch (up_fused) reports the
-        # sum over its launches
+            f"{rd / 1e9:.2f} GB read + {wr / 1e9:.2f} GB written, "
+            f"{to:.3f} ms of MACs) [{gpu}]")
         r = rec.setdefault(name, dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
-                                      bound_ms=0.0, bound_by=by))
+                                      bound_ms=0.0, t_bytes=0.0, t_ops=0.0))
         r["ms"] += ms
         r["plain_ms"] += plain_ms
         r["library_ms"] += library_ms
         r["bound_ms"] += bms
+        r["t_bytes"] += tb
+        r["t_ops"] += to
         del a
         torch.cuda.empty_cache()
+    for r in rec.values():
+        r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_ops") \
+            else "operations"
     return rec
 
 
@@ -376,15 +519,223 @@ def certify_run(main, root, frm_path, out, tail):
     return rows, samples, secs
 
 
+ATTACK_IDS = 48          # identities of the attack run = its batch
+# --scale-factor of the attack runs: semi-axes 10x the attribute budgets,
+# so that on random weights about a fifth of the identities turn into
+# adversaries (the feasibility and re-verification checks have something
+# to check) and the rest do not; the compute is the same at any scale
+ATTACK_SCALE = 1e-2
+
+
+def attack_data_dir(root):
+    """w.npy for ATTACK_IDS identities from the port's mapping network
+    (the attack CLI computes their gallery on its first run)."""
+    from certifyingfacerecognition_torch.models import stylegan
+
+    os.makedirs(root, exist_ok=True)
+    mapping = stylegan.random_params(1024, seed=1, realistic=True,
+                                     device="cuda")
+    z = torch.randn((ATTACK_IDS, 512),
+                    generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        w = stylegan.mapping_apply(mapping, z.cuda()).cpu().numpy()
+    np.save(os.path.join(root, "w.npy"), w)
+    return w
+
+
+def scaled_frm(frm_path, w, out_path, target=25.0):
+    """The phase-5 ArcFace weights with the final feature affine scaled so
+    that the mean embedding norm of the first identities of ``w`` is
+    ``target``. The unscaled He-scaled random weights give embedding norms
+    of ~5e6 and gallery distances of ~2e6, where the attack's softmax over
+    -d/512 is one-hot in f32 and every gradient of its loss is exactly 0;
+    scaled, the distances are tens. Returns the scale factor."""
+    from certifyingfacerecognition_torch.models.pipeline import make_lat2embs
+    from certifyingfacerecognition_torch.utils import weights as W
+
+    params = W.load_params(frm_path, device="cuda")
+    gen = W.load_generator_params("random:0", resolution=1024, device="cuda")
+    with torch.inference_mode():
+        e = make_lat2embs("insightface", 1024)(
+            gen, params, torch.as_tensor(w[:8], device="cuda"))
+    c = target / e.norm(dim=1).mean().item()
+    params["features"]["scale"] *= c
+    params["features"]["shift"] *= c
+    W.save_params(out_path, params)
+    return c
+
+
+def attack_run(main, data, frm_path, out, tail, load_embs):
+    """One cfr-attack-torch run (PGD, 1024^2, bf16, one chunk of
+    ATTACK_IDS identities at batch ATTACK_IDS, 1 restart x 3 iterations,
+    --scale-factor ATTACK_SCALE); returns its wall time in seconds."""
+    os.environ["CFR_TAIL"] = tail
+    t0 = time.time()
+    main(["--output-dir", out, "--data-dir", data, "--attack-type",
+          "manual", "--face-recog-method", "insightface", "--dtype", "bf16",
+          "--resolution", "1024", "--chunks", "1", "--num-chunk", "0",
+          "--batch-size", str(ATTACK_IDS), "--restarts", "1", "--iters", "3",
+          "--gen-weights", "random:0", "--frm-weights", frm_path,
+          "--scale-factor", str(ATTACK_SCALE), "--seed", "0"]
+         + (["--load-embs"] if load_embs else []))
+    torch.cuda.synchronize()
+    return time.time() - t0
+
+
+def check_attack_artifacts(out, w, region, predict, params):
+    """The chunk log and data parse; every saved success is feasible and
+    still misclassified when re-synthesised and re-classified."""
+    from certifyingfacerecognition_torch.attacks.pgd import \
+        assert_deltas_feasible
+    from certifyingfacerecognition_torch.eval import artifacts
+
+    stats = artifacts.parse_chunk_log(
+        os.path.join(out, "logs", "results_chunk0of1.txt"))
+    assert sorted(stats) == ["avg_mags", "instances", "successes"], stats
+    assert int(stats["instances"]) == ATTACK_IDS
+    n = int(stats["successes"])
+    data_file = os.path.join(out, "results", "results_chunk0of1.npz")
+    if n == 0:
+        assert not os.path.exists(data_file)
+        return stats
+    data = artifacts.load_chunk_data(data_file)
+    idx, deltas = data["successes"], data["deltas"]
+    assert len(idx) == n and deltas.shape == (n, region.dirs.shape[1])
+    assert np.all(data["magnitudes"] <= 1.0 + 1e-3)
+    d = torch.as_tensor(deltas, device="cuda")
+    assert_deltas_feasible(d, region)
+    adv = torch.as_tensor(w[idx], device="cuda") + d @ region.dirs.t()
+    # one zero-padded batch of the attack's size, as the CLI re-verifies:
+    # in bf16 another batch shape may round a borderline identity the
+    # other way
+    adv = torch.cat([adv, adv.new_zeros((ATTACK_IDS - n, adv.shape[1]))])
+    preds = predict(params, adv)[:n].cpu().numpy()
+    assert np.all(preds != idx), (preds, idx)
+    return stats
+
+
+def attack_grad_check(bc, params, w, b=4, draws=3):
+    """Gradients with respect to the deltas at B = b, 1024^2, three ways:
+    bf16 through the chain tail (all four chain counters must rise), plain
+    bf16, and f32; for ``draws`` initial deltas of PGD at the attribute
+    budgets (scale factor 1). Two losses: the attack loss (xent over the
+    gallery distances, through the generator and ArcFace) and the image
+    loss sum(img^2) (through the generator alone, as
+    tests/test_tail_bc_integration.py holds the JAX package's tail). For
+    each, the chain tail's error against f32 (mean |err| over mean |f32
+    gradient|, averaged over the draws) must be no worse than 1.5x the
+    plain bf16 path's plus 0.02. Through 50 bf16 ArcFace layers the attack
+    loss's gradient is noisy on both bf16 paths (0.3-0.9 of its size on
+    random weights, measured on an H100); the image loss's is not (about
+    0.06), so there a tail whose gradient were lost (error ~1) also fails
+    its check."""
+    from certifyingfacerecognition_torch.attacks.losses import compute_loss
+    from certifyingfacerecognition_torch.eval.chunk_runner import \
+        make_dists_fn
+    from certifyingfacerecognition_torch.models.stylegan import \
+        synthesize_from_w
+    from certifyingfacerecognition_torch.ops import geometry as G
+
+    region = G.get_all_matrices(device="cuda")
+    lats = torch.as_tensor(w[:b], device="cuda")
+    labels = torch.arange(b, device="cuda")
+    deltas = [G.init_deltas(torch.Generator().manual_seed(2 + i), b,
+                            region.red_ellipse) for i in range(draws)]
+    losses = {
+        "attack loss": lambda fn, dt, x: compute_loss(
+            fn(params, x), labels, loss_type="xent"),
+        "image loss": lambda fn, dt, x: (synthesize_from_w(
+            params["gen"], x, resolution=1024, dtype=dt).float() ** 2).sum()}
+    grads = {name: {} for name in losses}
+    for tag, dtype, tail in (("bc", torch.bfloat16, "bc"),
+                             ("plain16", torch.bfloat16, ""),
+                             ("f32", torch.float32, "")):
+        os.environ["CFR_TAIL"] = tail
+        fn = make_dists_fn("insightface", 1024, dtype)
+        for name, loss_fn in losses.items():
+            bc.reset_launches()
+            grads[name][tag] = []
+            for d0 in deltas:
+                d = d0.clone().requires_grad_()
+                loss = loss_fn(fn, dtype, lats + d @ region.dirs.t())
+                grads[name][tag].append(torch.autograd.grad(loss, d)[0])
+            torch.cuda.synchronize()
+            if tag == "bc":
+                chain = {k: bc.LAUNCHES[k] for k in CHAIN}
+                log(f"{name} gradient through the chain tail: launches "
+                    f"{chain}")
+                if not all(chain.values()):
+                    raise AssertionError(f"chain kernels not launched: "
+                                         f"{chain}")
+    for name, by_tag in grads.items():
+        err = {t: float(np.mean([
+            ((g - g32).abs().mean() / g32.abs().mean()).item()
+            for g, g32 in zip(by_tag[t], by_tag["f32"])]))
+            for t in ("bc", "plain16")}
+        log(f"check {name} gradient d/ddeltas 1024^2 B={b} vs f32, mean of "
+            f"{draws} draws: chain tail {err['bc']:.4f}, plain bf16 "
+            f"{err['plain16']:.4f} (mean|err| / mean|f32|)")
+        for g in sum(by_tag.values(), []):
+            assert torch.isfinite(g).all() and g.abs().max() > 0
+        assert err["bc"] <= 1.5 * err["plain16"] + 0.02
+
+
+def pgd_step_times(params, w, region, gpu, reps=3):
+    """Seconds per PGD iteration at batch ATTACK_IDS, 1024^2, bf16:
+    forward (distances + loss) and backward (the gradient with respect to
+    the deltas, with the rematerialised forward), through the chain tail
+    and on plain ops; median of ``reps`` after one warm-up, each half
+    ended by a device synchronisation."""
+    from certifyingfacerecognition_torch.attacks.losses import compute_loss
+    from certifyingfacerecognition_torch.eval.chunk_runner import \
+        make_dists_fn
+    from certifyingfacerecognition_torch.ops import geometry as G
+
+    lats = torch.as_tensor(w, device="cuda")
+    labels = torch.arange(len(w), device="cuda")
+    deltas = G.init_deltas(torch.Generator().manual_seed(3), len(w),
+                           region.red_ellipse)
+    out = {}
+    for tag, tail in (("bc", "bc"), ("plain16", "")):
+        os.environ["CFR_TAIL"] = tail
+        fn = make_dists_fn("insightface", 1024, torch.bfloat16)
+        torch.cuda.reset_peak_memory_stats()
+        fwd, bwd = [], []
+        for _ in range(reps + 1):
+            d = deltas.clone().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = compute_loss(fn(params, lats + d @ region.dirs.t()),
+                                labels, loss_type="xent")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            torch.autograd.grad(loss, d)
+            torch.cuda.synchronize()
+            fwd.append(t1 - t0)
+            bwd.append(time.perf_counter() - t1)
+        f, b_ = float(np.median(fwd[1:])), float(np.median(bwd[1:]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[tag] = (f, b_)
+        log(f"PGD iteration 1024^2 bf16 batch {len(w)} "
+            f"({'chain tail' if tag == 'bc' else 'plain ops'}): forward "
+            f"{f:.3f} s + backward {b_:.3f} s = {f + b_:.3f} s per "
+            f"iteration, peak memory {peak:.1f} GiB [{gpu}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
     t_start = time.time()
-    from certifyingfacerecognition_torch.cli import certify
+    from certifyingfacerecognition_torch.cli import certify, main_attack
+    from certifyingfacerecognition_torch.eval.chunk_runner import \
+        make_predict_fn
+    from certifyingfacerecognition_torch.ops import geometry as G
     from certifyingfacerecognition_torch.ops import kernels
     from certifyingfacerecognition_torch.ops import synthesis_tail_bc as bc
+    from certifyingfacerecognition_torch.utils import weights as W
 
     gpu = gpu_line()
     log(gpu)
@@ -408,6 +759,7 @@ def main() -> int:
     check_chain(bc, gen)
     timing = time_kernels(bc, gen, gpu)
 
+    cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
         w, frm_path, pipes, gen_params, embs = make_data_dir(root, {})
         check_outputs(pipes, gen_params, w, embs)
@@ -418,29 +770,93 @@ def main() -> int:
         rows, samples, secs = certify_run(certify.main, root, frm_path,
                                           os.path.join(root, "bc.tsv"), "bc")
         launches = dict(bc.LAUNCHES)
-        log(f"main path (CFR_TAIL=bc): {rows}")
-        log(f"main path launches: {launches}")
-        missing = [k for k, v in launches.items() if v == 0]
+        log(f"certify path (CFR_TAIL=bc): {rows}")
+        log(f"certify path launches: {launches}")
+        missing = [k for k in CHAIN if launches[k] == 0]
         if missing:
-            raise AssertionError(f"kernels never launched on the main path: "
-                                 f"{missing}")
-        log(f"main path bf16 chain tail: {samples} samples in {secs:.3f} s "
-            f"= {samples / secs:.1f} samples/s [{gpu}]")
+            raise AssertionError(f"kernels never launched on the certify "
+                                 f"path: {missing}")
+        log(f"certify path bf16 chain tail: {samples} samples in "
+            f"{secs:.3f} s = {samples / secs:.1f} samples/s [{gpu}]")
 
         bc.reset_launches()
         rows_p, samples_p, secs_p = certify_run(
             certify.main, root, frm_path, os.path.join(root, "plain.tsv"), "")
         assert all(v == 0 for v in bc.LAUNCHES.values()), bc.LAUNCHES
-        log(f"main path (plain bf16): {rows_p}")
-        log(f"main path bf16 plain ops: {samples_p} samples in {secs_p:.3f} s "
-            f"= {samples_p / secs_p:.1f} samples/s [{gpu}]")
+        log(f"certify path (plain bf16): {rows_p}")
+        log(f"certify path bf16 plain ops: {samples_p} samples in "
+            f"{secs_p:.3f} s = {samples_p / secs_p:.1f} samples/s [{gpu}]")
+        torch.cuda.empty_cache()
+
+        standalone = check_standalone_tail(bc, gen)
+        torch.cuda.empty_cache()
+
+        # the attack path; the CLI writes exp_results/ under its cwd
+        data = os.path.join(root, "attack")
+        w_atk = attack_data_dir(data)
+        frm_atk = os.path.join(root, "arcface_r50_scaled.npz")
+        log(f"attack FRM: phase-5 ArcFace weights, feature affine scaled by "
+            f"{scaled_frm(frm_path, w_atk, frm_atk):.3e} to a mean "
+            f"embedding norm of 25")
+        os.chdir(root)
+        try:
+            bc.reset_launches()
+            secs_bc = attack_run(main_attack.main, data, frm_atk, "atk_bc",
+                                 "bc", load_embs=False)
+            attack_launches = dict(bc.LAUNCHES)
+            log(f"attack path (CFR_TAIL=bc) launches: {attack_launches}, "
+                f"{secs_bc:.1f} s for the whole run [{gpu}]")
+            if not all(attack_launches[k] for k in CHAIN) or \
+                    any(attack_launches[k] for k in STANDALONE):
+                raise AssertionError("the attack path must launch every "
+                                     "chain kernel and no standalone one")
+            bc.reset_launches()
+            secs_plain = attack_run(main_attack.main, data, frm_atk,
+                                    "atk_plain", "", load_embs=True)
+            assert all(v == 0 for v in bc.LAUNCHES.values()), bc.LAUNCHES
+            log(f"attack path (plain bf16): {secs_plain:.1f} s for the "
+                f"whole run [{gpu}]")
+            os.environ["CFR_TAIL"] = "bc"
+            main_attack.main(["--output-dir", "atk_bc", "--eval-files",
+                              "--scale-factor", str(ATTACK_SCALE)])
+            results = open(os.path.join("exp_results", "atk_bc",
+                                        "results.txt")).read().split("\n")
+            log(f"attack --eval-files results.txt: {results}")
+            assert [r.split(":")[0] for r in results[:4]] == \
+                ["successes", "instances", "rate", "avg_mag"], results
+            assert results[1] == f"instances:{ATTACK_IDS}", results
+
+            region = G.get_all_matrices(scale_factor=ATTACK_SCALE,
+                                        device="cuda")
+            params = {"gen": W.load_generator_params("random:0",
+                                                     resolution=1024),
+                      "frm": W.load_frm_params(frm_atk),
+                      "gallery": torch.as_tensor(W.load_embeddings(
+                          os.path.join(data, "embs_insightface.npz")),
+                          device="cuda")}
+            for out, tail in (("atk_bc", "bc"), ("atk_plain", "")):
+                os.environ["CFR_TAIL"] = tail
+                stats = check_attack_artifacts(
+                    os.path.join("exp_results", out), w_atk, region,
+                    make_predict_fn("insightface", 1024, torch.bfloat16),
+                    params)
+                log(f"attack artifacts {out}: {stats}, every success "
+                    f"feasible and re-verified")
+        finally:
+            os.chdir(cwd)
+        torch.cuda.empty_cache()
+        attack_grad_check(bc, params, w_atk)
+        torch.cuda.empty_cache()
+        pgd_step_times(params, w_atk, region, gpu)
 
     records = []
-    for name in ("up_fused", "conv_fused", "final_stats", "final_apply"):
+    for name in CHAIN + STANDALONE:
         t = timing[name]
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name],
+            "launches": (attack_launches if name in CHAIN
+                         else standalone)[name],
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})

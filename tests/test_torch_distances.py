@@ -3,6 +3,7 @@ against the JAX package's, f32 on the CPU: distances at rtol=1e-5 (atol
 1e-4 on squared distances ~1e3), decisions exactly, including planted
 exact ties and non-finite rows."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -69,3 +70,31 @@ def test_nearest_refined_nonfinite_query_stays_in_range():
     assert int(idx[1]) == want
     _, jidx = jd.nearest_refined(jnp.asarray(x), jnp.asarray(g))
     assert int(idx[1]) == int(jidx[1])
+
+
+def test_cdist_gradient_at_zero_distance_matches_jax():
+    """A gallery row equal to the query (distance exactly 0; entries are
+    multiples of 1/8, so the matmul expansion is exact): the port's
+    gradient equals jax.grad of the JAX cdist, which takes the
+    subgradient 0 there, and is finite; the other entries agree to
+    rtol 1e-5."""
+    x, g = _data(6, b=3, n=40)
+    x = np.round(x * 8) / 8
+    g[5], g[17] = x[0], x[2]
+    cot = np.random.default_rng(7).standard_normal((3, 40)).astype(
+        np.float32)
+    want = jax.grad(lambda x: jnp.sum(jd.cdist(x, jnp.asarray(g))
+                                      * cot))(jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    d = td.cdist(xt, torch.tensor(g))
+    assert d[0, 5] == 0 and d[2, 17] == 0
+    (got,) = torch.autograd.grad((d * torch.tensor(cot)).sum(), xt)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-6)
+    # the zero entry contributes nothing: drop it and the gradient holds
+    cot0 = cot.copy()
+    cot0[0, 5] = cot0[2, 17] = 0.0
+    (got0,) = torch.autograd.grad((td.cdist(xt, torch.tensor(g))
+                                   * torch.tensor(cot0)).sum(), xt)
+    np.testing.assert_array_equal(got0.numpy(), got.numpy())

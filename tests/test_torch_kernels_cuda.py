@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels of the chain tail against their plain
-PyTorch versions, on the GPU. Marked ``cuda``; without a CUDA device
+"""The hand-written CUDA kernels of the synthesis tail (the chain kernels
+and the standalone half-layer passes) against their plain PyTorch
+versions, on the GPU. Marked ``cuda``; without a CUDA device
 every test skips (there is no CPU mode of a CUDA kernel). Run on a
 machine with the card: ``python -m pytest --noconftest
 tests/test_torch_kernels_cuda.py -m cuda`` (tests/conftest.py imports JAX,
@@ -8,8 +9,9 @@ which these tests do not need).
 Tolerance: max |kernel - plain| <= 2^-6 x max |plain| in bf16 (two bf16
 ulps at the top of the range: an intermediate that differs in its last
 f32 bit can round the other way), 1e-4 x in f32; each row of the f32 sums
-(sum t, sum t^2) to 1e-4 x its own largest value (atomics sum in another
-order on every run)."""
+(sum t, sum t^2) to 1e-4 x its own largest value (the kernels sum in
+another order than the plain version, in 2^-20 fixed point). Two launches
+on the same inputs give the same bits."""
 
 import pytest
 import torch
@@ -72,10 +74,76 @@ def test_kernels_match_plain(gen, dtype, apply_aff, h, ci, co, b):
                           apply_aff=apply_aff),
            bc.final_apply_ref(t, k, nbc, aff2, coefs, w_rgb, b_rgb,
                               apply_aff=apply_aff), TOL[dtype])
-    assert all(bc.LAUNCHES[n] == before[n] + 1 for n in bc.LAUNCHES)
+    assert all(bc.LAUNCHES[n] == before[n] + 1 for n in (
+        "up_fused", "conv_fused", "final_stats", "final_apply"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,ci,co,b", [(8, 16, 16, 8), (16, 32, 16, 40)])
+def test_standalone_kernels_match_plain(gen, dtype, h, ci, co, b):
+    """The five passes of the standalone half-layers (no input affine,
+    the layer's own affine applied by the producer)."""
+    x = _randn((h, h, ci, b), gen).to(dtype)
+    k4, nb2 = _randn((4, 4, ci, co), gen, 0.2), _randn((2 * h, 2 * h, co), gen)
+    k, nb = _randn((3, 3, ci, co), gen, 0.2), _randn((h, h, co), gen)
+    coefs = torch.stack([_randn((co, b), gen, 0.3) + 1, _randn((co, b), gen)])
+    w_rgb, b_rgb = _randn((co, 3), gen, 0.3), _randn((3,), gen)
+    names = ("conv_stats", "conv_apply", "conv_rgb_apply", "up_stats",
+             "up_apply")
+    before = dict(bc.LAUNCHES)
+    _sums_close(bc.up_stats(x, k4, nb2), bc.up_stats_ref(x, k4, nb2))
+    _close(bc.up_apply(x, k4, nb2, coefs), bc.up_apply_ref(x, k4, nb2, coefs),
+           TOL[dtype])
+    _sums_close(bc.conv_stats(x, k, nb), bc.conv_stats_ref(x, k, nb))
+    _close(bc.conv_apply(x, k, nb, coefs), bc.conv_apply_ref(x, k, nb, coefs),
+           TOL[dtype])
+    _close(bc.conv_rgb_apply(x, k, nb, coefs, w_rgb, b_rgb),
+           bc.conv_rgb_apply_ref(x, k, nb, coefs, w_rgb, b_rgb), TOL[dtype])
+    assert all(bc.LAUNCHES[n] == before[n] + 1 for n in names)
+
+
+def test_kernels_are_deterministic(gen):
+    """The fixed-point sums do not depend on the order of the atomic adds,
+    so a second launch on the same inputs gives the same bits."""
+    x = _randn((16, 16, 32, 40), gen).to(torch.bfloat16)
+    aff = torch.stack([_randn((32, 40), gen, 0.3) + 1, _randn((32, 40), gen)])
+    aff2 = torch.stack([_randn((16, 40), gen, 0.3) + 1, _randn((16, 40), gen)])
+    k4, nb = _randn((4, 4, 32, 16), gen, 0.2), _randn((32, 32, 16), gen)
+    k, nbc = _randn((3, 3, 16, 16), gen, 0.2), _randn((32, 32, 16), gen)
+
+    def run():
+        t, s = bc.up_fused(x, k4, nb, aff)
+        return (t, s, bc.conv_fused(t, k, nbc, aff2)[1],
+                bc.up_stats(x, k4, nb), bc.conv_stats(t, k, nbc))
+
+    for a, b in zip(run(), run()):
+        assert torch.equal(a, b)
+
+
+def test_differentiable_ops_launch_kernels_and_match_refs(gen):
+    """The standalone ops and the chain differentiate on the card: the
+    forward launches the kernels, the backward is the plain reference's
+    vjp (f32, to 1e-4 of each gradient's scale)."""
+    b, h = 8, 8
+    x = _randn((h, h, 16, b), gen).requires_grad_()
+    k4, nb2 = _randn((4, 4, 16, 16), gen, 0.2), _randn((16, 16, 16), gen)
+    s0 = (_randn((b, 16), gen, 0.2) + 1).requires_grad_()
+    s1 = _randn((b, 16), gen, 0.2).requires_grad_()
+    cot = _randn((2 * h, 2 * h, 16, b), gen)
+    before = bc.LAUNCHES["up_apply"]
+    out = bc.upconv_blur_epilogue_bc(x, k4, nb2, s0, s1)
+    assert bc.LAUNCHES["up_apply"] == before + 1
+    got = torch.autograd.grad((out * cot).sum(), (x, s0, s1))
+    want = torch.autograd.grad((bc._upconv_ref(x, k4, nb2, s0, s1, 1e-8)
+                                * cot).sum(), (x, s0, s1))
+    for g, w in zip(got, want):
+        _close(g, w, 1e-4)
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(gen):
+    with pytest.raises(RuntimeError, match="requires grad"):
+        bc.conv_stats(_randn((8, 8, 16, 8), gen).requires_grad_(),
+                      _randn((3, 3, 16, 16), gen), _randn((8, 8, 16), gen))
     x = _randn((8, 8, 16, 8), gen)
     aff = torch.stack([torch.ones((16, 8), device="cuda"),
                        torch.zeros((16, 8), device="cuda")])

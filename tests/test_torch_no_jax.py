@@ -29,4 +29,4 @@ def test_port_file_imports_no_jax(path):
 def test_scan_covers_the_port():
     names = {p.name for p in FILES}
     assert {"chip_smoke.py", "synthesis_tail_bc.py", "certify.py",
-            "stylegan.py"} <= names
+            "stylegan.py", "main_attack.py", "pgd.py", "geometry.py"} <= names

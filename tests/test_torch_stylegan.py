@@ -185,3 +185,36 @@ def test_tail_cut_rules_match_jax(monkeypatch):
                     jsg._bc_first_block(res, jdt)
                 assert tsg.cb_out_active(res, tdt) == \
                     jsg.cb_out_active(res, jdt)
+
+
+def test_block_checkpoints_keep_the_gradient(monkeypatch):
+    """With grad enabled, a block whose input is >= 256^2 (the 512^2
+    block here, 4 channels) runs each half-layer as its own checkpoint,
+    the JAX package's remat discipline; the gradient with respect to the
+    latents equals the one without checkpoints bit for bit, and with grad
+    off nothing is checkpointed."""
+    syn = tw.to_torch(_tail_syn(np.random.default_rng(9), 256, [4] * 9, 8),
+                      "cpu")
+    x = torch.tensor(np.random.default_rng(10).standard_normal(
+        (1, 4, 256, 256)).astype(np.float32))
+    wp = torch.tensor(np.random.default_rng(11).standard_normal(
+        (1, 16, 512)).astype(np.float32))
+    calls = []
+    real = tsg.checkpoint
+    monkeypatch.setattr(tsg, "checkpoint", lambda fn, *a, **k: (
+        calls.append(1), real(fn, *a, **k))[1])
+
+    def grad():
+        w = wp.clone().requires_grad_()
+        out = tsg._synthesis_block(syn, x, w, block_idx=8,
+                                   dtype=torch.float32)
+        assert out.shape == (1, 4, 512, 512)
+        return torch.autograd.grad(out.square().sum(), w)[0]
+
+    g = grad()
+    assert len(calls) == 2
+    with torch.no_grad():
+        tsg._synthesis_block(syn, x, wp, block_idx=8, dtype=torch.float32)
+    assert len(calls) == 2
+    monkeypatch.setattr(tsg, "_remat", lambda fn, *a: fn(*a))
+    torch.testing.assert_close(g, grad(), rtol=0, atol=0)
