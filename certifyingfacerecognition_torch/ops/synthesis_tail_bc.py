@@ -236,6 +236,39 @@ def _cuda_args(x, weight, nb, aff, kshape, nb_hw, co_mult):
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
+def pack_up_weights(k4: torch.Tensor) -> torch.Tensor:
+    """k4 [4, 4, Ci, Co] -> the bf16 up kernel's weights in the order of
+    the B fragments of ``mma.m16n8k16`` (K = input channels, N = output
+    channels): [4, 4, Co/8, Ci/16, 32, 4]. Entry [kh, kw, cc, s, 4g + t]
+    is what lane 4g + t of a warp holds for output channel 8cc + g and
+    the input channels 16s + 2t + (0, 1, 8, 9), so each lane loads its
+    fragment of one (tap, 8 output channels, 16 input channels) step with
+    one 8-byte load. The values are cast to bf16 (exact for weights that
+    already hold bf16 values)."""
+    kh, kw, ci, co = k4.shape
+    if (kh, kw) != (4, 4) or ci % 16 or co % 8:
+        raise ValueError(f"pack_up_weights takes [4, 4, Ci, Co] with Ci a "
+                         f"multiple of 16 and Co of 8, got {tuple(k4.shape)}")
+    # input channel 16s + 8h + 2t + p, output channel 8cc + g
+    k = k4.to(torch.bfloat16).reshape(4, 4, ci // 16, 2, 4, 2, co // 8, 8)
+    return k.permute(0, 1, 6, 2, 7, 4, 3, 5).reshape(
+        4, 4, co // 8, ci // 16, 32, 4).contiguous()
+
+
+def _up_args(x, k4, nb, aff):
+    """_cuda_args of an up-layer launch; the bf16 kernel takes its weights
+    packed (pack_up_weights) and needs Ci a multiple of 16."""
+    h, w, ci, _ = x.shape
+    code, kf, nbt, af, stream = _cuda_args(x, k4, nb, aff, (4, 4),
+                                           (2 * h, 2 * w), 8)
+    if x.dtype == torch.bfloat16:
+        if ci % 16:
+            raise ValueError(f"the bf16 up kernel needs input channels a "
+                             f"multiple of 16, got {ci}")
+        return code, pack_up_weights(kf), kf.shape[3], nbt, af, stream
+    return code, kf, kf.shape[3], nbt, af, stream
+
+
 def _coefs_arg(coefs, co, b, device):
     if tuple(coefs.shape) != (2, co, b) or coefs.device != device:
         raise ValueError(f"coefs must be [2, {co}, {b}] on {device}")
@@ -282,9 +315,7 @@ def up_fused(x, k4, nb, aff, *, apply_aff=True):
     if x.device.type == "cpu":
         return up_fused_ref(x, k4, nb, aff, apply_aff=apply_aff)
     h, w, ci, b = x.shape
-    code, kf, nbt, af, stream = _cuda_args(x, k4, nb, aff, (4, 4),
-                                           (2 * h, 2 * w), 8)
-    co = kf.shape[3]
+    code, kf, co, nbt, af, stream = _up_args(x, k4, nb, aff)
     out = torch.empty((2 * h, 2 * w, co, b), dtype=x.dtype, device=x.device)
     sums = _sums_buffer(co, b, x.device)
     with torch.cuda.device(x.device):
@@ -409,9 +440,7 @@ def up_stats(x, k4, nb):
     if x.device.type == "cpu":
         return up_stats_ref(x, k4, nb)
     h, w, ci, b = x.shape
-    code, kf, nbt, _, stream = _cuda_args(x, k4, nb, None, (4, 4),
-                                          (2 * h, 2 * w), 8)
-    co = kf.shape[3]
+    code, kf, co, nbt, _, stream = _up_args(x, k4, nb, None)
     sums = _sums_buffer(co, b, x.device)
     with torch.cuda.device(x.device):
         _launch("up_stats", _lib().cfr_up_stats, code, x.data_ptr(),
@@ -426,9 +455,7 @@ def up_apply(x, k4, nb, coefs):
     if x.device.type == "cpu":
         return up_apply_ref(x, k4, nb, coefs)
     h, w, ci, b = x.shape
-    code, kf, nbt, _, stream = _cuda_args(x, k4, nb, None, (4, 4),
-                                          (2 * h, 2 * w), 8)
-    co = kf.shape[3]
+    code, kf, co, nbt, _, stream = _up_args(x, k4, nb, None)
     cf = _coefs_arg(coefs, co, b, x.device)
     out = torch.empty((2 * h, 2 * w, co, b), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
