@@ -46,11 +46,22 @@
 // the bf16 tensor cores in well under that, so the roofline bound is bytes
 // for every launch but one: the up layer's stats pass at 512^2 writes only
 // its sums, so its 0.55 TFLOP of MACs (0.56 ms) outweigh its 1.07 GB read.
-// This first version runs the MACs as f32 FMAs on the CUDA cores (about 15x
-// below the tensor-core rate), so it is bound by instruction issue, not by
-// memory; it keeps every intermediate (the un-blurred deconv, the 1024^2
-// 16-channel activation of the last layer) out of device memory, which is
-// what the chain design is for. Moving the MACs to wgmma is later work.
+// The bf16 up kernel runs its deconvolution on the tensor cores
+// (mma.sync.m16n8k16, f32 accumulation; deconv_mma below), with one block
+// of 8 warps per SM (223 KB of shared memory at Ci = 64 and at Ci = 256).
+// What bounds it now is instruction issue outside the MMAs: the staging
+// of the input region with its bf16 affine, the CUDA-core blur, epilogue
+// and fixed-point sums, and the block-wide barriers between these phases,
+// which nothing overlaps with one block per SM. The conv kernels and the
+// f32 up kernel still run their MACs as f32 FMAs on the CUDA cores (about
+// 15x below the tensor-core rate), bound by instruction issue. Every kernel
+// keeps every intermediate (the un-blurred deconv, the 1024^2 16-channel
+// activation of the last layer) out of device memory, which is what the
+// chain design is for. Later work: the conv kernels' MACs on the tensor
+// cores; for the up kernel a Hopper pipeline (wgmma, TMA loads of the
+// input region, warp specialisation so that staging overlaps the MMAs and
+// the blur) and a deconv computed once per output instead of once per
+// tile halo (1.56x).
 // Bounds of one launch at B = 128 on an H100 SXM (3.35 TB/s, 989 TFLOP/s
 // bf16; chip_smoke.py bound()), at the 1024^2 FFHQ tail's shapes:
 //   cfr_up_fused        up512 0.97 ms, up1024 1.93 ms (bytes)
@@ -73,6 +84,8 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -202,7 +215,7 @@ __global__ void __launch_bounds__(LANES* NY, 3)
                    const float* __restrict__ brgb, T* __restrict__ out,
                    acc_t* __restrict__ sums, int H, int W, int Ci, int Co,
                    int B, int tile_px) {
-  extern __shared__ __align__(8) unsigned char smem_raw[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   acc_t* red_s = reinterpret_cast<acc_t*>(smem_raw);     // [2][Co][LANES]
   T* aff_s = reinterpret_cast<T*>(red_s + 2 * Co * LANES);  // [2][Ci][LANES]
   setup_shared<T>(aff, aff_s, red_s, Ci, Co, B, AFF);
@@ -275,6 +288,268 @@ __global__ void __launch_bounds__(LANES* NY, 3)
   if (MODE == MODE_T || MODE == MODE_STATS) flush_sums(red_s, sums, Co, B);
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 up layer's deconvolution on the tensor cores (mma.sync).
+//
+// Per output position and live tap the deconv is a GEMM
+// D[b, co] += X[b, ci] * W_tap[ci, co]: M = the block's 32 samples (two
+// m16 tiles), N = the UCC = 8 output channels of one pass (one n8 tile),
+// K = Ci in steps of 16, as mma.sync.m16n8k16 bf16 with f32 accumulation.
+// (Samples as M and channels as N fit the pass of 8 channels exactly, and
+// the accumulators land where the blur reads yb_s, [pos][channel][sample].)
+//
+// Index map. A tile's 10x10 halo of outputs (rows r0-1 .. r0+UT, r0 even)
+// reads the XR x XR = 6x6 input pixels from (r0/2 - 1, q0/2 - 1). An
+// output of row parity pr = orow & 1 takes the taps kh = pr + 2a (a = 0, 1)
+// at input row m = (orow + kh - 2) / 2; the halo rows of parity pr are
+// i = 2u + 1 - pr (u = 0..4), and with orow = r0 - 1 + i that input row is
+// the staged row u + a. Columns alike. So each of the four parity classes
+// (pr, pc) is a 5x5 grid of outputs whose tap (a, e) reads staged pixel
+// (u + a, v + e): warp w takes class w >> 1 and m16 tile w & 1, holds its
+// 25 outputs' accumulators (100 f32 registers), loads each staged pixel's
+// A fragment once per k16 step (ldmatrix .trans from the [ci][sample]
+// staging) and feeds it to the up to four outputs that read it.
+//
+// Staging. The input region, with the input affine applied in bf16 (in-
+// image pixels only; pixels outside the image and samples >= B are 0),
+// goes to xs [36][ck][32] bf16 in chunks of ck input channels. ck = Ci
+// when the whole region fits the block's shared memory (Ci <= 64 with
+// Co <= 32), and the region is then staged once per tile for all Co/UCC
+// passes; otherwise 32 or 16 channels per chunk, restaged for every pass.
+// The 16-byte chunk c of row (pixel, ci) is stored at c ^ ((ci >> 1) & 3),
+// so the eight rows of one ldmatrix phase hit distinct banks.
+//
+// Weights. pack_up_weights (ops/synthesis_tail_bc.py) lays them out as the
+// B fragments [4][4][Co/8][Ci/16][32 lanes][4 bf16]: one 8-byte load per
+// lane per (tap, pass, k16 step), read through L1/L2 (32 KB at Ci = 64,
+// Co = 32, 16 KB of it per pass).
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+constexpr int XR = UT / 2 + 2;    // staged input region edge
+constexpr int NPIX = XR * XR;
+constexpr int NCLS = UT / 2 + 1;  // outputs per parity class and axis
+// Output channels per pass of the up kernel (yb_s holds one pass).
+template <typename T>
+constexpr int up_pass = std::is_same<T, bf16>::value ? UCC : UCC / 2;
+static_assert(NY == 8, "deconv_mma maps 4 parity classes x 2 m16 tiles "
+                       "onto the 8 warps");
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr,
+                                              unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4], uint2 b) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// Two bf16 in one 32-bit word (low half first) to f32 and back.
+__device__ __forceinline__ float bf_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// affine<bf16> of two packed bf16 values.
+__device__ __forceinline__ unsigned affine2(unsigned v, unsigned a,
+                                            unsigned o) {
+  return bf_pack(affine<bf16>(bf_lo(v), bf_lo(a), bf_lo(o)),
+                 affine<bf16>(bf_hi(v), bf_hi(a), bf_hi(o)));
+}
+
+// Stage input channels [ci0, ci0 + ck) of the input region whose top-left
+// pixel is (m0, n0) into xs (layout above). Each thread moves 8 samples.
+template <bool AFF>
+__device__ void stage_x(const bf16* __restrict__ x, const bf16* aff_s,
+                        bf16* xs, int m0, int n0, int ci0, int ck, int H,
+                        int W, int Ci, int B) {
+  const int tid = threadIdx.y * LANES + threadIdx.x;
+  const bool vec = B % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  for (int i = tid; i < NPIX * ck * 4; i += LANES * NY) {
+    const int c = i & 3, row = i >> 2;   // row = pixel * ck + ci
+    const int ci = row % ck, pix = row / ck;
+    const int m = m0 + pix / XR, n = n0 + pix % XR;
+    const int b0 = blockIdx.x * LANES + c * 8;
+    uint4 q = make_uint4(0, 0, 0, 0);
+    if (m >= 0 && m < H && n >= 0 && n < W && b0 < B) {
+      const bf16* src = x + ((size_t)(m * W + n) * Ci + ci0 + ci) * B + b0;
+      if (vec) {
+        q = *reinterpret_cast<const uint4*>(src);
+      } else {
+        unsigned short e[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          e[k] = b0 + k < B ? __bfloat16_as_ushort(src[k]) : 0;
+        q = make_uint4(e[0] | (unsigned)e[1] << 16, e[2] | (unsigned)e[3] << 16,
+                       e[4] | (unsigned)e[5] << 16, e[6] | (unsigned)e[7] << 16);
+      }
+      if (AFF) {
+        // identity (1, 0) for samples >= B, whose staged value stays 0
+        const uint4 a = *reinterpret_cast<const uint4*>(
+            aff_s + (ci0 + ci) * LANES + c * 8);
+        const uint4 o = *reinterpret_cast<const uint4*>(
+            aff_s + (Ci + ci0 + ci) * LANES + c * 8);
+        q = make_uint4(affine2(q.x, a.x, o.x), affine2(q.y, a.y, o.y),
+                       affine2(q.z, a.z, o.z), affine2(q.w, a.w, o.w));
+      }
+    }
+    *reinterpret_cast<uint4*>(xs + row * LANES + ((c ^ ((ci >> 1) & 3)) * 8)) =
+        q;
+  }
+}
+
+// One chunk of staged input channels (k16 steps s0 .. s0 + ck/16 of the
+// packed weights) into this warp's accumulators, for output channels
+// 8 * cc .. 8 * cc + 7.
+__device__ __forceinline__ void mma_chunk(const bf16* xs,
+                                          const uint2* __restrict__ wp,
+                                          float (&acc)[NCLS][NCLS][4],
+                                          int ck, int s0, int S, int cc,
+                                          int CC) {
+  const int lane = threadIdx.x, cls = threadIdx.y >> 1, mt = threadIdx.y & 1;
+  const int pr = cls >> 1, pc = cls & 1;
+  // this lane's ldmatrix row: input channel ci_l of the k16 step, samples
+  // of chunk 2 mt (matrices 0, 2) or 2 mt + 1 (matrices 1, 3)
+  const int ci_l = (lane & 7) + ((lane >> 4) << 3);
+  const int chunk = (2 * mt + ((lane >> 3) & 1)) ^ ((ci_l >> 1) & 3);
+  const unsigned base = (unsigned)__cvta_generic_to_shared(xs) +
+                        (unsigned)(ci_l * LANES + chunk * 8) * 2u;
+  for (int ks = 0; ks < ck / 16; ++ks) {
+    uint2 bw[2][2];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        bw[a][e] = wp[((((pr + 2 * a) * 4 + pc + 2 * e) * CC + cc) * S + s0 +
+                       ks) * LANES + lane];
+#pragma unroll
+    for (int sy = 0; sy < XR; ++sy)
+#pragma unroll
+      for (int sx = 0; sx < XR; ++sx) {
+        unsigned af[4];
+        ldsm_x4_trans(
+            base + (unsigned)(((sy * XR + sx) * ck + 16 * ks) * LANES * 2),
+            af);
+#pragma unroll
+        for (int a = 0; a < 2; ++a)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int u = sy - a, v = sx - e;
+            if (u >= 0 && u < NCLS && v >= 0 && v < NCLS)
+              mma_bf16(acc[u][v], af, bw[a][e]);
+          }
+      }
+  }
+}
+
+// The deconv of one pass (output channels c0 .. c0 + 7) of the tile at
+// (r0, q0) into yb_s, 0 outside the 2H x 2W grid. Stages the input region
+// chunk by chunk unless it was staged for the whole tile (ck == Ci).
+template <bool AFF>
+__device__ void deconv_mma(const bf16* __restrict__ x,
+                           const uint2* __restrict__ wp, const bf16* aff_s,
+                           bf16* xs, bf16* yb_s, int r0, int q0, int c0,
+                           int ck, int H, int W, int Ci, int Co, int B) {
+  constexpr int YR = UT + 2;
+  float acc[NCLS][NCLS][4];
+#pragma unroll
+  for (int u = 0; u < NCLS; ++u)
+#pragma unroll
+    for (int v = 0; v < NCLS; ++v)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[u][v][r] = 0.f;
+  for (int ci0 = 0; ci0 < Ci; ci0 += ck) {
+    if (ck != Ci) {
+      stage_x<AFF>(x, aff_s, xs, r0 / 2 - 1, q0 / 2 - 1, ci0, ck, H, W, Ci,
+                   B);
+      __syncthreads();
+    }
+    mma_chunk(xs, wp, acc, ck, ci0 / 16, Ci / 16, c0 / UCC, Co / UCC);
+    if (ck != Ci) __syncthreads();
+  }
+  const int lane = threadIdx.x, cls = threadIdx.y >> 1, mt = threadIdx.y & 1;
+  const int pr = cls >> 1, pc = cls & 1, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int u = 0; u < NCLS; ++u)
+#pragma unroll
+    for (int v = 0; v < NCLS; ++v) {
+      const int i = 2 * u + 1 - pr, j = 2 * v + 1 - pc;
+      const int orow = r0 - 1 + i, ocol = q0 - 1 + j;
+      const bool in = orow >= 0 && orow < 2 * H && ocol >= 0 && ocol < 2 * W;
+      // D rows are samples 16 mt + g (+ 8), columns channels 2t (+ 1)
+      bf16* yp = yb_s + ((i * YR + j) * UCC + 2 * t) * LANES + 16 * mt + g;
+      yp[0] = __float2bfloat16_rn(in ? acc[u][v][0] : 0.f);
+      yp[LANES] = __float2bfloat16_rn(in ? acc[u][v][1] : 0.f);
+      yp[8] = __float2bfloat16_rn(in ? acc[u][v][2] : 0.f);
+      yp[LANES + 8] = __float2bfloat16_rn(in ? acc[u][v][3] : 0.f);
+    }
+}
+
+// The f32 up layer's deconv of one pass into yb_s on the CUDA cores: one
+// halo position per thread at a time, f32 FMAs (k4 f32 [4, 4, Ci, Co]).
+template <typename T, bool AFF>
+__device__ void deconv_fma(const T* __restrict__ x,
+                           const float* __restrict__ k4, const T* aff_s,
+                           T* yb_s, int r0, int q0, int c0, int H, int W,
+                           int Ci, int Co, int B) {
+  constexpr int YR = UT + 2;
+  constexpr int NPOS = YR * YR;
+  constexpr int UP = up_pass<T>;
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x * LANES + lane;
+  const bool active = b < B;
+  const int OH = 2 * H, OW = 2 * W;
+  for (int pos = threadIdx.y; pos < NPOS; pos += NY) {
+    const int orow = r0 - 1 + pos / YR, ocol = q0 - 1 + pos % YR;
+    float acc[UP];
+#pragma unroll
+    for (int j = 0; j < UP; ++j) acc[j] = 0.f;
+    if (active && orow >= 0 && orow < OH && ocol >= 0 && ocol < OW) {
+      for (int a = 0; a < 2; ++a) {
+        const int kh = (orow & 1) + 2 * a;
+        const int m = (orow + kh - 2) / 2;   // orow + kh is even
+        if (m < 0 || m >= H) continue;
+        for (int e = 0; e < 2; ++e) {
+          const int kw = (ocol & 1) + 2 * e;
+          const int n = (ocol + kw - 2) / 2;
+          if (n < 0 || n >= W) continue;
+          const T* xp = x + (size_t)(m * W + n) * Ci * B + b;
+          const float* kp = k4 + (size_t)(kh * 4 + kw) * Ci * Co + c0;
+          for (int ci = 0; ci < Ci; ++ci) {
+            float v = to_f(xp[(size_t)ci * B]);
+            if (AFF)
+              v = affine<T>(v, to_f(aff_s[ci * LANES + lane]),
+                            to_f(aff_s[(Ci + ci) * LANES + lane]));
+            float wv[UP];
+            load_w<UP>(kp + (size_t)ci * Co, wv);
+#pragma unroll
+            for (int j = 0; j < UP; ++j) acc[j] = fmaf(v, wv[j], acc[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < UP; ++j)
+      yb_s[(pos * UP + j) * LANES + lane] = from_f<T>(acc[j]);
+  }
+}
+
 // Up layer: t = lrelu(blur3x3(convT4x4,s2(aff(x))) + nb) on the 2H x 2W
 // grid.
 //   MODE_T:     write t raw [2H, 2W, Co, B], accumulate sums [2, Co, B]
@@ -284,21 +559,33 @@ __global__ void __launch_bounds__(LANES* NY, 3)
 // forward conv of the JAX package (pad 2, dilation 2): output row o reads
 // input row m = (o + kh - 2) / 2 for the two kh with o + kh even. Each
 // tile of UT x UT outputs first deconvolves its (UT+2)^2 halo region for
-// UCC channels into shared memory (zero outside the 2H x 2W grid: the blur
+// UP channels into shared memory (zero outside the 2H x 2W grid: the blur
 // sees zero padding there), then blurs from it. AFF as in conv3x3_kernel.
+// bf16: the deconv runs on the tensor cores (deconv_mma above; k4 is the
+// packed weights, ck the staging chunk). f32: on the CUDA cores as f32
+// FMAs, one position per thread (k4 is f32 [4, 4, Ci, Co]; ck unused),
+// UP = 4 channels per pass so that its f32 yb_s leaves room for the f32
+// staged affine and the sums at Ci = 256, Co = 128 (182,272 B).
+// Shared memory per block (bf16): sums 2*Co*32*8 B + staged affine
+// 2*Ci*32*2 B + yb_s 51,200 B + staged input 36*ck*32*2 B; at Ci = 64,
+// Co = 32 (ck = 64) 223,232 B, at Ci = 256, Co = 128 (ck = 32) 223,232 B:
+// one block (8 warps) per SM.
 template <typename T, int MODE, bool AFF>
 __global__ void __launch_bounds__(LANES* NY)
-    up_kernel(const T* __restrict__ x, const float* __restrict__ k4,
+    up_kernel(const T* __restrict__ x, const void* __restrict__ k4,
               const T* __restrict__ nb, const float* __restrict__ aff,
               const float* __restrict__ coefs, T* __restrict__ out,
               acc_t* __restrict__ sums, int H, int W, int Ci, int Co,
-              int B) {
+              int B, int ck) {
   constexpr int YR = UT + 2;
   constexpr int NPOS = YR * YR;
-  extern __shared__ __align__(8) unsigned char smem_raw[];
+  constexpr bool TC = std::is_same<T, bf16>::value;
+  constexpr int UP = up_pass<T>;   // output channels per pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   acc_t* red_s = reinterpret_cast<acc_t*>(smem_raw);      // [2][Co][LANES]
   T* aff_s = reinterpret_cast<T*>(red_s + 2 * Co * LANES);  // [2][Ci][LANES]
-  T* yb_s = aff_s + 2 * Ci * LANES;                        // [NPOS][UCC][LANES]
+  T* yb_s = aff_s + 2 * Ci * LANES;                        // [NPOS][UP][LANES]
+  T* xs = yb_s + NPOS * UP * LANES;                 // bf16: [NPIX][ck][LANES]
   setup_shared<T>(aff, aff_s, red_s, Ci, Co, B, AFF);
 
   const int lane = threadIdx.x;
@@ -310,59 +597,39 @@ __global__ void __launch_bounds__(LANES* NY)
 
   for (int tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
     const int r0 = (tile / ntw) * UT, q0 = (tile % ntw) * UT;
-    for (int c0 = 0; c0 < Co; c0 += UCC) {
-      for (int pos = threadIdx.y; pos < NPOS; pos += NY) {
-        const int orow = r0 - 1 + pos / YR, ocol = q0 - 1 + pos % YR;
-        float acc[UCC];
-#pragma unroll
-        for (int j = 0; j < UCC; ++j) acc[j] = 0.f;
-        if (active && orow >= 0 && orow < OH && ocol >= 0 && ocol < OW) {
-          for (int a = 0; a < 2; ++a) {
-            const int kh = (orow & 1) + 2 * a;
-            const int m = (orow + kh - 2) / 2;   // orow + kh is even
-            if (m < 0 || m >= H) continue;
-            for (int e = 0; e < 2; ++e) {
-              const int kw = (ocol & 1) + 2 * e;
-              const int n = (ocol + kw - 2) / 2;
-              if (n < 0 || n >= W) continue;
-              const T* xp = x + (size_t)(m * W + n) * Ci * B + b;
-              const float* kp = k4 + (size_t)(kh * 4 + kw) * Ci * Co + c0;
-              for (int ci = 0; ci < Ci; ++ci) {
-                float v = to_f(xp[(size_t)ci * B]);
-                if (AFF)
-                  v = affine<T>(v, to_f(aff_s[ci * LANES + lane]),
-                                to_f(aff_s[(Ci + ci) * LANES + lane]));
-                float wv[UCC];
-                load_w<UCC>(kp + (size_t)ci * Co, wv);
-#pragma unroll
-                for (int j = 0; j < UCC; ++j) acc[j] = fmaf(v, wv[j], acc[j]);
-              }
-            }
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < UCC; ++j)
-          yb_s[(pos * UCC + j) * LANES + lane] = from_f<T>(acc[j]);
+    if constexpr (TC) {
+      if (ck == Ci) {   // the whole region, once for every pass
+        stage_x<AFF>(x, aff_s, xs, r0 / 2 - 1, q0 / 2 - 1, 0, Ci, H, W, Ci,
+                     B);
+        __syncthreads();
       }
+    }
+    for (int c0 = 0; c0 < Co; c0 += UP) {
+      if constexpr (TC)
+        deconv_mma<AFF>(x, static_cast<const uint2*>(k4), aff_s, xs, yb_s,
+                        r0, q0, c0, ck, H, W, Ci, Co, B);
+      else
+        deconv_fma<T, AFF>(x, static_cast<const float*>(k4), aff_s, yb_s,
+                           r0, q0, c0, H, W, Ci, Co, B);
       __syncthreads();
       // this thread's sums over its pixels of the tile, in order
-      float s1[UCC], s2[UCC];
+      float s1[UP], s2[UP];
 #pragma unroll
-      for (int j = 0; j < UCC; ++j) s1[j] = s2[j] = 0.f;
+      for (int j = 0; j < UP; ++j) s1[j] = s2[j] = 0.f;
       for (int q = threadIdx.y; q < UT * UT; q += NY) {
         const int lr = q / UT, lc = q % UT;
         const int orow = r0 + lr, ocol = q0 + lc;
         if (!active || orow >= OH || ocol >= OW) continue;
         const size_t op = (size_t)orow * OW + ocol;
 #pragma unroll
-        for (int j = 0; j < UCC; ++j) {
+        for (int j = 0; j < UP; ++j) {
           float v[3];
 #pragma unroll
           for (int dc = 0; dc < 3; ++dc) {
-            const int base = (lr * YR + lc + dc) * UCC + j;
+            const int base = (lr * YR + lc + dc) * UP + j;
             v[dc] = blur3<T>(to_f(yb_s[base * LANES + lane]),
-                             to_f(yb_s[(base + YR * UCC) * LANES + lane]),
-                             to_f(yb_s[(base + 2 * YR * UCC) * LANES + lane]));
+                             to_f(yb_s[(base + YR * UP) * LANES + lane]),
+                             to_f(yb_s[(base + 2 * YR * UP) * LANES + lane]));
           }
           const float hb = blur3<T>(v[0], v[1], v[2]);
           const int co = c0 + j;
@@ -379,7 +646,7 @@ __global__ void __launch_bounds__(LANES* NY)
       }
       if (MODE != MODE_APPLY && active) {
 #pragma unroll
-        for (int j = 0; j < UCC; ++j) {
+        for (int j = 0; j < UP; ++j) {
           atomicAdd(&red_s[(c0 + j) * LANES + lane], to_fixed(s1[j]));
           atomicAdd(&red_s[(Co + c0 + j) * LANES + lane], to_fixed(s2[j]));
         }
@@ -436,16 +703,33 @@ int dispatch_conv(int dtype, const void* x, const float* k, const void* nb,
 }
 
 template <typename T, int MODE>
-int launch_up(const void* x, const float* k4, const void* nb,
+int launch_up(const void* x, const void* k4, const void* nb,
               const float* aff, const float* coefs, void* out, acc_t* sums,
               int H, int W, int Ci, int Co, int B, int apply_aff,
               cudaStream_t stream) {
   // only the chain's up layer (MODE_T) takes an input affine
   auto kern = apply_aff ? up_kernel<T, MODE, MODE == MODE_T>
                         : up_kernel<T, MODE, false>;
-  const int smem = 2 * Co * LANES * (int)sizeof(acc_t) +
-                   (2 * Ci + (UT + 2) * (UT + 2) * UCC) * LANES *
-                       (int)sizeof(T);
+  int smem = 2 * Co * LANES * (int)sizeof(acc_t) +
+             (2 * Ci + (UT + 2) * (UT + 2) * up_pass<T>) * LANES *
+                 (int)sizeof(T);
+  int ck = 0;
+  if (std::is_same<T, bf16>::value) {
+    // the staging chunk: all of Ci if the region fits, else 32 or 16
+    int dev = 0, max_smem = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&max_smem,
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    const int chunks[3] = {Ci, 32, 16};
+    for (int c : chunks) {
+      if (Ci % c == 0 && smem + NPIX * c * LANES * 2 <= max_smem) {
+        ck = c;
+        break;
+      }
+    }
+    if (ck == 0) return -3;
+    smem += NPIX * ck * LANES * 2;
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -455,20 +739,20 @@ int launch_up(const void* x, const float* k4, const void* nb,
   dim3 block(LANES, NY);
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), k4, static_cast<const T*>(nb), aff, coefs,
-      static_cast<T*>(out), sums, H, W, Ci, Co, B);
+      static_cast<T*>(out), sums, H, W, Ci, Co, B, ck);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
-int dispatch_up(int dtype, const void* x, const float* k4, const void* nb,
+int dispatch_up(int dtype, const void* x, const void* k4, const void* nb,
                 const float* aff, const float* coefs, void* out, acc_t* sums,
                 int H, int W, int Ci, int Co, int B, int apply_aff,
                 void* stream) {
-  if (Co % UCC != 0) return -1;
+  if (Co % UCC != 0 || (dtype == 1 && Ci % 16 != 0)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_up<__nv_bfloat16, MODE>(x, k4, nb, aff, coefs, out, sums,
-                                          H, W, Ci, Co, B, apply_aff, s);
+    return launch_up<bf16, MODE>(x, k4, nb, aff, coefs, out, sums, H, W, Ci,
+                                 Co, B, apply_aff, s);
   if (dtype == 0)
     return launch_up<float, MODE>(x, k4, nb, aff, coefs, out, sums, H, W,
                                   Ci, Co, B, apply_aff, s);
@@ -480,12 +764,15 @@ int dispatch_up(int dtype, const void* x, const float* k4, const void* nb,
 // Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // Each function launches on `stream`, does not synchronise, and returns the
 // cudaGetLastError() code of the launch (0 on success; -1 for Co not a
-// multiple of 8 (up) or 16 (conv), -2 for an unknown dtype). `sums` is
-// int64 [2, Co, B] in units of 2^-20 (see the design note), zeroed by the
-// caller.
+// multiple of 8 (up) or 16 (conv), or a bf16 up layer's Ci not a multiple
+// of 16; -2 for an unknown dtype; -3 for an up layer whose shared memory
+// does not fit a block). `sums` is int64 [2, Co, B] in units of 2^-20 (see
+// the design note), zeroed by the caller. The up layer's k4 is f32
+// [4, 4, Ci, Co] for dtype 0 and the packed bf16 fragments of
+// pack_up_weights (ops/synthesis_tail_bc.py) for dtype 1.
 extern "C" {
 
-int cfr_up_fused(int dtype, const void* x, const float* k4, const void* nb,
+int cfr_up_fused(int dtype, const void* x, const void* k4, const void* nb,
                  const float* aff, void* out, acc_t* sums, int H, int W,
                  int Ci, int Co, int B, int apply_aff, void* stream) {
   return dispatch_up<MODE_T>(dtype, x, k4, nb, aff, nullptr, out, sums, H, W,
@@ -543,14 +830,14 @@ int cfr_conv_rgb_apply(int dtype, const void* x, const float* k,
                                  out, nullptr, H, W, Ci, Co, B, 0, stream);
 }
 
-int cfr_up_stats(int dtype, const void* x, const float* k4, const void* nb,
+int cfr_up_stats(int dtype, const void* x, const void* k4, const void* nb,
                  acc_t* sums, int H, int W, int Ci, int Co, int B,
                  void* stream) {
   return dispatch_up<MODE_STATS>(dtype, x, k4, nb, nullptr, nullptr, nullptr,
                                  sums, H, W, Ci, Co, B, 0, stream);
 }
 
-int cfr_up_apply(int dtype, const void* x, const float* k4, const void* nb,
+int cfr_up_apply(int dtype, const void* x, const void* k4, const void* nb,
                  const float* coefs, void* out, int H, int W, int Ci, int Co,
                  int B, void* stream) {
   return dispatch_up<MODE_APPLY>(dtype, x, k4, nb, nullptr, coefs, out,

@@ -60,6 +60,11 @@ def _nvcc() -> str:
                        "toolkit (set NVCC or put nvcc on PATH)")
 
 
+def cuda_tool(name: str) -> str:
+    """A binary of the CUDA toolkit that holds nvcc (cuobjdump, nvdisasm)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
+
+
 def build(name: str) -> Path:
     """Compile SOURCES[name] into build_dir() unless an up-to-date library
     is there already. Returns the library path; raises on a failed build."""

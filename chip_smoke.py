@@ -5,11 +5,16 @@
 Runs straight through and raises (exit code != 0) on any failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a);
+2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a) and
+   counts the tensor-core (HMMA) instructions of each up_kernel
+   instantiation in the library's SASS (cuobjdump); every bf16 one must
+   have some;
 3. each kernel of the synthesis tail against its plain PyTorch version at
    the 1024^2 tail's shapes (B = 8), bf16 and f32: the four chain kernels
    with and without the input affine, the five passes of the standalone
-   half-layers, and the whole kernel chain against a plain chain;
+   half-layers, the up layer also at CFR_TAIL_MIN_RES=128's first up layer
+   (64^2 -> 128^2, 256 -> 128 channels), and the whole kernel chain
+   against a plain chain;
 4. each kernel's time at B = 128 (CUDA events, median of 5) beside its
    plain version's time, its roofline bound and the time of cuDNN's
    convolution of the same layer (the library yardstick);
@@ -40,6 +45,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -158,13 +164,20 @@ STANDALONE_LAYERS = [
     ("up_stats", "up", 512, 32, 16), ("up_apply", "up", 512, 32, 16),
     ("conv_stats", "conv", 1024, 16, 16),
     ("conv_rgb_apply", "conv", 1024, 16, 16)]
+# checked, not timed: the first up layer of CFR_TAIL_MIN_RES=128's tail,
+# where the bf16 kernel stages its input in chunks of 32 channels
+WIDE_UP_LAYERS = [("up_fused", "up", 64, 256, 128),
+                  ("up_stats", "up", 64, 256, 128),
+                  ("up_apply", "up", 64, 256, 128)]
 
 
 def check_kernels(bc, gen):
     """Phase 3: every kernel against its plain version on the card."""
     worst = {}
-    cases = [(L, aff) for L in LAYERS for aff in (False, True)] + \
-        [(L, False) for L in STANDALONE_LAYERS]
+    cases = [(L, aff) for L in LAYERS + WIDE_UP_LAYERS
+             if L[0] in CHAIN for aff in (False, True)] + \
+        [(L, False) for L in STANDALONE_LAYERS + WIDE_UP_LAYERS
+         if L[0] in STANDALONE]
     for (name, kind, h, ci, co), apply_aff in cases:
         for dtype in (torch.bfloat16, torch.float32):
             a = layer_inputs(kind, h, ci, co, 8, dtype, gen)
@@ -173,7 +186,7 @@ def check_kernels(bc, gen):
             torch.cuda.synchronize()
             for what, g, w, tol in kernel_outputs(name, got, want, dtype):
                 mx, med, scale, ok = max_err(g, w, tol)
-                log(f"check {name:14s} h={h:4d} {ci:2d}->{co:2d} "
+                log(f"check {name:14s} h={h:4d} {ci:3d}->{co:3d} "
                     f"{str(dtype)[6:]:8s} aff={int(apply_aff)} {what:4s} "
                     f"max|err| {mx:.3e} median {med:.3e} "
                     f"max|plain| {scale:.3e} tol {tol:.1e}*max|plain| "
@@ -188,6 +201,29 @@ def check_kernels(bc, gen):
                     worst[name] = max(worst.get(name, 0.0), mx)
             del a, got, want
     return worst
+
+
+def up_kernel_hmma(lib_path):
+    """{"up_kernel<T, MODE, AFF>": HMMA instructions} of every up_kernel
+    instantiation in the built library's SASS (cuobjdump -sass)."""
+    from certifyingfacerecognition_torch.ops import kernels
+
+    sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass",
+                           str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = re.search(r"up_kernelI(13__nv_bfloat16|f)Li(\d)ELb(\d)E",
+                          line)
+            fn = None if m is None else (
+                f"up_kernel<{'bf16' if m[1] != 'f' else 'f32'}, "
+                f"MODE {m[2]}, AFF {m[3]}>")
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
 
 
 def plain_chain(bc, x, blocks, eps=1e-8):
@@ -751,8 +787,15 @@ def main() -> int:
     info = kernels.BUILD_LOG.get("synthesis_tail_bc", {})
     log(f"build: {time.time() - t0:.1f} s ({info.get('cmd', 'cached')})")
     for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling" in line:
             log("  ptxas: " + line.strip())
+    hmma = up_kernel_hmma(kernels.build("synthesis_tail_bc"))
+    for fn, n in sorted(hmma.items()):
+        log(f"  SASS {fn}: {n} HMMA instructions")
+    bf16_up = {fn: n for fn, n in hmma.items() if "bf16" in fn}
+    if not bf16_up or not all(bf16_up.values()):
+        raise AssertionError(f"a bf16 up_kernel has no tensor-core "
+                             f"instruction: {hmma}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernels(bc, gen)

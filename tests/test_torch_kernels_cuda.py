@@ -102,14 +102,63 @@ def test_standalone_kernels_match_plain(gen, dtype, h, ci, co, b):
     assert all(bc.LAUNCHES[n] == before[n] + 1 for n in names)
 
 
-def test_kernels_are_deterministic(gen):
+def _small_grid_sums_close(got, want, t, dtype):
+    """Sums over a small grid (10x10 outputs here): each row to 1e-4 x its
+    own largest value, plus one output's tolerance of t (TOL x max |t| for
+    sum t, and 2 max |t| times that for sum t^2). The kernel's t may take
+    the other rounding at an output (a deconv value rounded to bf16 the
+    other way moves the outputs its blur reaches by under a bf16 ulp in
+    all), and on 100 pixels one such output is about 1e-4 of a row's
+    largest sum (measured on an H100: 5.3e-3 of 34.5)."""
+    tmax = t.float().abs().max().item()
+    slack = (TOL[dtype] * tmax, 2 * tmax * TOL[dtype] * tmax)
+    for row in range(2):
+        err = (got[row] - want[row]).abs().max().item()
+        assert err <= 1e-4 * want[row].abs().max().item() + slack[row]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ci,co,b", [(64, 32, 40), (128, 64, 40),
+                                     (64, 32, 12)])
+def test_up_kernels_match_plain_ragged(gen, dtype, ci, co, b):
+    """The three up-kernel entry points at the tail's widths and at
+    CFR_TAIL_MIN_RES=256's (Ci = 128), with ragged tiles (H = 5: a 10x10
+    output grid in 8x8 tiles) and a ragged sample group (B = 40; B = 12
+    also takes the bf16 kernel's unaligned staging path)."""
+    h = 5
+    x = _randn((h, h, ci, b), gen).to(dtype)
+    aff = torch.stack([_randn((ci, b), gen, 0.3) + 1, _randn((ci, b), gen)])
+    k4 = _randn((4, 4, ci, co), gen, (2.0 / (9 * ci)) ** 0.5)
+    nb = _randn((2 * h, 2 * h, co), gen, 0.1)
+    coefs = torch.stack([_randn((co, b), gen, 0.3) + 1, _randn((co, b), gen)])
+    before = dict(bc.LAUNCHES)
+    for apply_aff in (True, False):
+        t, s = bc.up_fused(x, k4, nb, aff, apply_aff=apply_aff)
+        tr, sr = bc.up_fused_ref(x, k4, nb, aff, apply_aff=apply_aff)
+        _close(t, tr, TOL[dtype])
+        _small_grid_sums_close(s, sr, tr, dtype)
+    # tr: the plain t without the input affine, as up_stats computes it
+    _small_grid_sums_close(bc.up_stats(x, k4, nb), bc.up_stats_ref(x, k4, nb),
+                           tr, dtype)
+    _close(bc.up_apply(x, k4, nb, coefs), bc.up_apply_ref(x, k4, nb, coefs),
+           TOL[dtype])
+    assert bc.LAUNCHES["up_fused"] == before["up_fused"] + 2
+    assert all(bc.LAUNCHES[n] == before[n] + 1
+               for n in ("up_stats", "up_apply"))
+
+
+@pytest.mark.parametrize("h,ci,co", [(16, 32, 16), (5, 64, 32)])
+def test_kernels_are_deterministic(gen, h, ci, co):
     """The fixed-point sums do not depend on the order of the atomic adds,
-    so a second launch on the same inputs gives the same bits."""
-    x = _randn((16, 16, 32, 40), gen).to(torch.bfloat16)
-    aff = torch.stack([_randn((32, 40), gen, 0.3) + 1, _randn((32, 40), gen)])
-    aff2 = torch.stack([_randn((16, 40), gen, 0.3) + 1, _randn((16, 40), gen)])
-    k4, nb = _randn((4, 4, 32, 16), gen, 0.2), _randn((32, 32, 16), gen)
-    k, nbc = _randn((3, 3, 16, 16), gen, 0.2), _randn((32, 32, 16), gen)
+    and the bf16 up kernel's tensor-core deconv sums in a fixed order per
+    thread, so a second launch on the same inputs gives the same bits (also
+    at ragged tiles, h = 5)."""
+    b = 40
+    x = _randn((h, h, ci, b), gen).to(torch.bfloat16)
+    aff = torch.stack([_randn((ci, b), gen, 0.3) + 1, _randn((ci, b), gen)])
+    aff2 = torch.stack([_randn((co, b), gen, 0.3) + 1, _randn((co, b), gen)])
+    k4, nb = _randn((4, 4, ci, co), gen, 0.2), _randn((2 * h, 2 * h, co), gen)
+    k, nbc = _randn((3, 3, co, co), gen, 0.2), _randn((2 * h, 2 * h, co), gen)
 
     def run():
         t, s = bc.up_fused(x, k4, nb, aff)
@@ -153,6 +202,15 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError, match="multiple of 16"):
         bc.conv_fused(x, _randn((3, 3, 16, 8), gen),
                       _randn((8, 8, 8), gen), aff)
+    # the bf16 up kernel's k16 steps need Ci a multiple of 16
+    x24 = _randn((8, 8, 24, 8), gen).bfloat16()
+    aff24 = torch.stack([torch.ones((24, 8), device="cuda"),
+                         torch.zeros((24, 8), device="cuda")])
+    for call in (lambda k, nb: bc.up_stats(x24, k, nb),
+                 lambda k, nb: bc.up_apply(x24, k, nb, aff[:, :8]),
+                 lambda k, nb: bc.up_fused(x24, k, nb, aff24)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            call(_randn((4, 4, 24, 8), gen), _randn((16, 16, 8), gen))
     with pytest.raises(ValueError, match="contiguous"):
         bc.conv_fused(x.transpose(0, 1), _randn((3, 3, 16, 16), gen),
                       _randn((8, 8, 16), gen), aff)
