@@ -22,7 +22,8 @@
 // Layout (as in the JAX package): activations [H, W, C, B] with the sample
 // axis B innermost, image [3, H, W, B], affines [2, C, B] in f32, sums
 // [2, C, B] in int64 fixed point (below), weights HWIO [kh, kw, Ci, Co]
-// (passed as f32 holding values already rounded to the activation type),
+// (the f32 kernels take them as f32 holding values already rounded to the
+// activation type, the bf16 kernels packed in mma fragment order),
 // noise+bias nb [H, W, Co] in the activation type.
 //
 // Design. One block holds 32 consecutive samples on threadIdx.x (one warp
@@ -34,7 +35,8 @@
 // The sums are deterministic: every sum whose order depends on scheduling
 // (the workers' adds into shared memory, the blocks' into the output) is
 // fixed point (int64, units of 2^-20), where addition is associative; the
-// up kernel first adds each thread's terms of a tile in f32, in order.
+// up kernel and the bf16 conv kernel first add each thread's terms of a
+// tile in f32, in order.
 // Each fixed-point term rounds by at most 2^-21, and the range holds
 // |sum t^2| < 2^43, i.e. an rms |t| below ~2900 over 1024^2 pixels. The
 // staged input affine is held in T (its values are rounded to T), which
@@ -46,22 +48,31 @@
 // the bf16 tensor cores in well under that, so the roofline bound is bytes
 // for every launch but one: the up layer's stats pass at 512^2 writes only
 // its sums, so its 0.55 TFLOP of MACs (0.56 ms) outweigh its 1.07 GB read.
-// The bf16 up kernel runs its deconvolution on the tensor cores
-// (mma.sync.m16n8k16, f32 accumulation; deconv_mma below), with one block
-// of 8 warps per SM (223 KB of shared memory at Ci = 64 and at Ci = 256).
-// What bounds it now is instruction issue outside the MMAs: the staging
-// of the input region with its bf16 affine, the CUDA-core blur, epilogue
-// and fixed-point sums, and the block-wide barriers between these phases,
-// which nothing overlaps with one block per SM. The conv kernels and the
-// f32 up kernel still run their MACs as f32 FMAs on the CUDA cores (about
-// 15x below the tensor-core rate), bound by instruction issue. Every kernel
-// keeps every intermediate (the un-blurred deconv, the 1024^2 16-channel
-// activation of the last layer) out of device memory, which is what the
-// chain design is for. Later work: the conv kernels' MACs on the tensor
-// cores; for the up kernel a Hopper pipeline (wgmma, TMA loads of the
-// input region, warp specialisation so that staging overlaps the MMAs and
-// the blur) and a deconv computed once per output instead of once per
-// tile halo (1.56x).
+// The bf16 kernels run their convolutions on the tensor cores
+// (mma.sync.m16n8k16, f32 accumulation; conv_mma and deconv_mma below),
+// with one block of 8 warps per SM: the up kernel takes 223 KB of shared
+// memory at Ci = 64 and at Ci = 256, the conv kernel 225 KB at 512^2
+// (Ci = Co = 32) and 110-126 KB at 1024^2 (Ci = Co = 16), and they hold
+// 100 and 64 f32 accumulators per thread. Both stage the input region of a
+// tile once in shared memory with the bf16 input affine applied there, so
+// each input element is read about 1.56x (the tile halo) and normalised
+// once per tile, not once per tap and pass. The conv kernel's sums are
+// per-thread f32 sums over the tile, one fixed-point add per (channel,
+// sample) and tile, where the CUDA-core version made two shared-memory
+// atomics per output element. What bounds them now is the phases that
+// run between block barriers with nothing to overlap them at one block
+// per SM: the staging loads (device memory latency with four 16-byte
+// loads in flight per thread), the MMAs, and the CUDA-core epilogue (the
+// up kernel's blur, +nb, lrelu, stores and sums). The f32 kernels still
+// run their MACs as f32 FMAs on the CUDA cores (about 15x below the
+// tensor-core rate), bound by instruction issue; the pipeline runs them
+// only as checks. Every kernel keeps every intermediate (the un-blurred
+// deconv, the 1024^2 16-channel activation of the last layer) out of
+// device memory, which is what the chain design is for. Later work: a
+// Hopper pipeline (wgmma, TMA loads of the input region, warp
+// specialisation so that staging overlaps the MMAs and the epilogue) and,
+// for the up kernel, a deconv computed once per output instead of once
+// per tile halo (1.56x).
 // Bounds of one launch at B = 128 on an H100 SXM (3.35 TB/s, 989 TFLOP/s
 // bf16; chip_smoke.py bound()), at the 1024^2 FFHQ tail's shapes:
 //   cfr_up_fused        up512 0.97 ms, up1024 1.93 ms (bytes)
@@ -195,6 +206,144 @@ __device__ __forceinline__ float own_affine(float t, const float* coefs,
                           coefs[(Co + co) * B + b]));
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core building blocks of the bf16 kernels (mma.sync.m16n8k16, bf16
+// in, f32 accumulation): M = the block's 32 samples (two m16 tiles), N =
+// output channels (n8 tiles), K = input channels (k16 steps).
+//
+// Staging. A kernel stages the R x R input region of a tile in shared
+// memory, xs [ck/16][R * R][16][32 samples] bf16, in chunks of ck input
+// channels, with the input affine applied in bf16 (in-image pixels only:
+// pixels outside the image and samples >= B stay 0, which is the zero
+// padding that follows the affine). A staged pixel's 16 channels of one
+// k16 step are 1 KB, so the ldmatrix address of a pixel is a constant
+// offset from the warp's base (with a [pixel][ck] order it depended on ck
+// and ptxas kept ~40 addresses in registers). The 16-byte chunk c of row
+// (pixel, ci) is stored at c ^ ((ci >> 1) & 3), so that the eight rows of
+// one ldmatrix phase hit distinct banks. A warp loads the A fragment of
+// one staged pixel and k16 step with one ldmatrix .x4 .trans from the
+// [ci][sample] rows.
+//
+// Weights. pack_mma_weights (ops/synthesis_tail_bc.py) lays [kh, kw, Ci, Co]
+// out as the B fragments [kh][kw][Co/8][Ci/16][32 lanes][4 bf16]: one
+// 8-byte load per lane per (tap, n8 tile, k16 step), read through L1/L2.
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr,
+                                              unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4], uint2 b) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// Two bf16 in one 32-bit word (low half first) to f32 and back.
+__device__ __forceinline__ float bf_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ unsigned bf_pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// affine<bf16> of two packed bf16 values.
+__device__ __forceinline__ unsigned affine2(unsigned v, unsigned a,
+                                            unsigned o) {
+  return bf_pack(affine<bf16>(bf_lo(v), bf_lo(a), bf_lo(o)),
+                 affine<bf16>(bf_hi(v), bf_hi(a), bf_hi(o)));
+}
+
+// Stage input channels [ci0, ci0 + ck) of the R x R input region whose
+// top-left pixel is (m0, n0) into xs (layout above). Each thread moves 8
+// samples per 16-byte chunk, with SB chunks' loads in flight at a time.
+template <int R, bool AFF>
+__device__ void stage_x(const bf16* __restrict__ x, const bf16* aff_s,
+                        bf16* xs, int m0, int n0, int ci0, int ck, int H,
+                        int W, int Ci, int B) {
+  constexpr int SB = 4;
+  constexpr int STEP = LANES * NY;
+  const int tid = threadIdx.y * LANES + threadIdx.x;
+  const bool vec = B % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int n_chunks = R * R * ck * 4;
+  for (int i0 = tid; i0 < n_chunks; i0 += SB * STEP) {
+    uint4 q[SB];
+    bool live[SB];
+#pragma unroll
+    for (int u = 0; u < SB; ++u) {
+      const int i = i0 + u * STEP;
+      // row i >> 2 = (k16 group * R * R + pixel) * 16 + channel in group
+      const int c = i & 3, pix = (i >> 6) % (R * R);
+      const int ci = (i >> 6) / (R * R) * 16 + ((i >> 2) & 15);
+      const int m = m0 + pix / R, n = n0 + pix % R;
+      const int b0 = blockIdx.x * LANES + c * 8;
+      live[u] = i < n_chunks && m >= 0 && m < H && n >= 0 && n < W && b0 < B;
+      q[u] = make_uint4(0, 0, 0, 0);
+      if (live[u]) {
+        const bf16* src = x + ((size_t)(m * W + n) * Ci + ci0 + ci) * B + b0;
+        if (vec) {
+          q[u] = *reinterpret_cast<const uint4*>(src);
+        } else {
+          unsigned short e[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            e[k] = b0 + k < B ? __bfloat16_as_ushort(src[k]) : 0;
+          q[u] = make_uint4(
+              e[0] | (unsigned)e[1] << 16, e[2] | (unsigned)e[3] << 16,
+              e[4] | (unsigned)e[5] << 16, e[6] | (unsigned)e[7] << 16);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SB; ++u) {
+      const int i = i0 + u * STEP;
+      if (i >= n_chunks) break;
+      const int c = i & 3, row = i >> 2;
+      const int ci = (i >> 6) / (R * R) * 16 + (row & 15);
+      uint4 v = q[u];
+      if (AFF && live[u]) {
+        // identity (1, 0) for samples >= B, whose staged value stays 0
+        const uint4 a = *reinterpret_cast<const uint4*>(
+            aff_s + (ci0 + ci) * LANES + c * 8);
+        const uint4 o = *reinterpret_cast<const uint4*>(
+            aff_s + (Ci + ci0 + ci) * LANES + c * 8);
+        v = make_uint4(affine2(v.x, a.x, o.x), affine2(v.y, a.y, o.y),
+                       affine2(v.z, a.z, o.z), affine2(v.w, a.w, o.w));
+      }
+      *reinterpret_cast<uint4*>(xs + row * LANES +
+                                ((c ^ ((ci >> 1) & 3)) * 8)) = v;
+    }
+  }
+}
+
+// The ldmatrix address of this lane's row in the A fragment of staged
+// pixel 0, k16 step 0, m16 tile mt: input channel ci_l of the step,
+// samples of chunk 2 mt (matrices 0, 2) or 2 mt + 1 (matrices 1, 3).
+// Staged pixel P of k16 step ks is (ks * R * R + P) KB further.
+__device__ __forceinline__ unsigned a_frag_base(const bf16* xs, int mt) {
+  const int lane = threadIdx.x;
+  const int ci_l = (lane & 7) + ((lane >> 4) << 3);
+  const int chunk = (2 * mt + ((lane >> 3) & 1)) ^ ((ci_l >> 1) & 3);
+  return (unsigned)__cvta_generic_to_shared(xs) +
+         (unsigned)(ci_l * LANES + chunk * 8) * 2u;
+}
+
+// ---------------------------------------------------------------------------
 // 3x3 conv (zero padding) of aff(x), then +nb and lrelu in f32.
 //   MODE_T:     write t [H, W, Co, B], accumulate sums [2, Co, B]
 //   MODE_STATS: accumulate sums only
@@ -204,17 +353,22 @@ __device__ __forceinline__ float own_affine(float t, const float* coefs,
 //               brgb[r], written [3, H, W, B]
 // AFF: whether the input affine is applied (a template parameter, so that
 // each variant gets its own code for the inner loop).
-// At least 3 blocks per SM: up to 80 registers per thread (one variant
-// spilled to local memory at 64 without the hint).
+// ---------------------------------------------------------------------------
+
+// The f32 kernel on the CUDA cores: one warp spans the samples of one pixel,
+// NY workers split the pixels of a tile of TILE_PX, and each output is
+// an f32 FMA loop over taps and input channels, CC output channels per
+// pass (k f32 [3, 3, Ci, Co]).
+constexpr int TILE_PX = NY * 8;
 template <typename T, int MODE, bool AFF>
-__global__ void __launch_bounds__(LANES* NY, 3)
-    conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ k,
-                   const T* __restrict__ nb, const float* __restrict__ aff,
-                   const float* __restrict__ coefs,
-                   const float* __restrict__ wrgb,
-                   const float* __restrict__ brgb, T* __restrict__ out,
-                   acc_t* __restrict__ sums, int H, int W, int Ci, int Co,
-                   int B, int tile_px) {
+__device__ void conv_fma(const T* __restrict__ x, const float* __restrict__ k,
+                         const T* __restrict__ nb,
+                         const float* __restrict__ aff,
+                         const float* __restrict__ coefs,
+                         const float* __restrict__ wrgb,
+                         const float* __restrict__ brgb, T* __restrict__ out,
+                         acc_t* __restrict__ sums, int H, int W, int Ci,
+                         int Co, int B, int ntiles) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   acc_t* red_s = reinterpret_cast<acc_t*>(smem_raw);     // [2][Co][LANES]
   T* aff_s = reinterpret_cast<T*>(red_s + 2 * Co * LANES);  // [2][Ci][LANES]
@@ -224,11 +378,10 @@ __global__ void __launch_bounds__(LANES* NY, 3)
   const int b = blockIdx.x * LANES + lane;
   const bool active = b < B;
   const int npix = H * W;
-  const int ntiles = (npix + tile_px - 1) / tile_px;
 
   for (int tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
-    const int p_end = min(npix, (tile + 1) * tile_px);
-    for (int p = tile * tile_px + threadIdx.y; p < p_end; p += NY) {
+    const int p_end = min(npix, (tile + 1) * TILE_PX);
+    for (int p = tile * TILE_PX + threadIdx.y; p < p_end; p += NY) {
       if (!active) continue;
       const int h = p / W, w = p % W;
       float rgb[3] = {0.f, 0.f, 0.f};
@@ -288,6 +441,254 @@ __global__ void __launch_bounds__(LANES* NY, 3)
   if (MODE == MODE_T || MODE == MODE_STATS) flush_sums(red_s, sums, Co, B);
 }
 
+// The bf16 kernel on the tensor cores.
+//
+// Per output pixel p and tap (dy, dx) the conv is the GEMM
+// D[b, co] += X[pix(p) + (dy - 1, dx - 1)][b, ci] * W[dy, dx][ci, co]. A
+// tile of CT x CT outputs at (r0, q0) reads the CR x CR = 10 x 10 input
+// region from (r0 - 1, q0 - 1): output (i, j) takes tap (dy, dx) from
+// staged pixel (i + dy, j + dx). Warp w takes the m16 sample tile w & 1
+// and the 16 outputs of tile rows 2 (w >> 1) and 2 (w >> 1) + 1, for TCC =
+// 8 output channels (one n8 tile) per pass: 2 x 8 x 4 = 64 f32
+// accumulators per thread (with two n8 tiles per pass, 128 of them, ptxas
+// spilled at 255 registers). Per k16 step and kernel row dy it loads the
+// B fragments of the three taps (dy, 0..2), then each staged pixel of the
+// two rows it reads once with ldmatrix, and feeds it to the up to three
+// outputs of that row that read it: 60 ldmatrix and 144 mma per k16 step.
+//
+// The region is staged once per tile for all Co/TCC passes when all of Ci
+// fits the block's shared memory (ck = Ci: Ci <= 32 at Co <= 32), else in
+// chunks of 32 or 16 channels, restaged for every pass.
+//
+// Epilogue from the accumulators: +nb and lrelu in f32. MODE_T writes t
+// in bf16 straight from the fragments (lanes 4g + t hold samples g, g + 8
+// and channels 2t, 2t + 1, so a store of the warp covers 8 consecutive
+// samples of 4 channels); MODE_APPLY writes own_affine(t); MODE_RGB takes
+// own_affine(t) into the ToRGB, sums it over the thread's 2 channels, then
+// over the quad (__shfl_xor_sync 1 then 2: every lane of the quad adds the
+// same two values, in either order, so all four hold the same bits) and
+// lane t < 3 keeps colour t across the passes in rgb_s, a slot that no
+// other thread touches. MODE_T and MODE_STATS add each thread's t and t^2
+// over its 16 outputs in f32 in order, then make one fixed-point add per
+// (channel, sample) into red_s: 8 shared atomics per thread and pass,
+// where the CUDA-core kernel made two per output element.
+//
+// Shared memory per block: sums 2*Co*32*8 B (MODE_T, MODE_STATS) + staged
+// affine 2*Ci*32*2 B + staged input 100*ck*32*2 B + rgb_s 24,576 B
+// (MODE_RGB); 225,280 B at 512^2 (Ci = Co = 32, ck = 32), 112,640 B
+// (sums) and 129,024 B (ToRGB) at 1024^2 (Ci = Co = 16): one block (8
+// warps) per SM.
+constexpr int CT = 8;           // output tile edge
+constexpr int CR = CT + 2;      // staged input region edge
+constexpr int TCC = 8;          // output channels per pass (one n8 tile)
+static_assert(NY == 8, "conv_mma maps 2 m16 tiles x 4 row pairs onto the "
+                       "8 warps");
+
+// One chunk of staged input channels (k16 steps s0 .. s0 + ck/16 of the
+// packed weights) into this warp's accumulators, for output channels
+// 8 * cc .. 8 * cc + 7.
+__device__ __forceinline__ void conv_mma(const bf16* xs,
+                                         const uint2* __restrict__ wp,
+                                         float (&acc)[2][CT][4], int ck,
+                                         int s0, int S, int cc, int CC8) {
+  const int lane = threadIdx.x, mt = threadIdx.y & 1, pg = threadIdx.y >> 1;
+  // staged row 2 pg of k16 step 0
+  const unsigned base = a_frag_base(xs, mt) + 2 * pg * CR * 1024;
+  for (int ks = 0; ks < ck / 16; ++ks) {
+    const unsigned kbase = base + ks * CR * CR * 1024;
+    // not unrolled: ptxas would prefetch the next kernel rows' ldmatrix
+    // results across the whole step and spill at 255 registers
+#pragma unroll 1
+    for (int dy = 0; dy < 3; ++dy) {
+      uint2 bw[3];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        bw[dx] = wp[(((dy * 3 + dx) * CC8 + cc) * S + s0 + ks) * LANES + lane];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int sx = 0; sx < CR; ++sx) {
+          unsigned af[4];
+          ldsm_x4_trans(kbase + dy * CR * 1024 + (r * CR + sx) * 1024, af);
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int j = sx - dx;
+            if (j >= 0 && j < CT) mma_bf16(acc[r][j], af, bw[dx]);
+          }
+        }
+    }
+  }
+}
+
+template <int MODE, bool AFF>
+__device__ void conv_tc(const bf16* __restrict__ x,
+                        const uint2* __restrict__ wp,
+                        const bf16* __restrict__ nb,
+                        const float* __restrict__ aff,
+                        const float* __restrict__ coefs,
+                        const float* __restrict__ wrgb,
+                        const float* __restrict__ brgb, bf16* __restrict__ out,
+                        acc_t* __restrict__ sums, int H, int W, int Ci,
+                        int Co, int B, int ntw, int ntiles, int ck) {
+  constexpr bool SUMS = MODE == MODE_T || MODE == MODE_STATS;
+  constexpr bool OWN = MODE == MODE_APPLY || MODE == MODE_RGB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nred = SUMS ? Co : 0;
+  acc_t* red_s = reinterpret_cast<acc_t*>(smem_raw);         // [2][Co][LANES]
+  bf16* aff_s = reinterpret_cast<bf16*>(red_s + 2 * nred * LANES);
+  bf16* xs = aff_s + 2 * Ci * LANES;                     // [CR*CR][ck][LANES]
+  float* rgb_s = reinterpret_cast<float*>(xs + CR * CR * ck * LANES);
+  setup_shared<bf16>(aff, aff_s, red_s, Ci, nred, B, AFF);
+
+  const int lane = threadIdx.x, mt = threadIdx.y & 1, pg = threadIdx.y >> 1;
+  const int g = lane >> 2, tq = lane & 3;
+  const int sb = 16 * mt + g;                  // block sample of d[0], d[1]
+  const int bs = blockIdx.x * LANES + sb;      // + 8 for d[2], d[3]
+
+  for (int tile = blockIdx.y; tile < ntiles; tile += gridDim.y) {
+    const int r0 = (tile / ntw) * CT, q0 = (tile % ntw) * CT;
+    if (ck == Ci) {   // the whole region, once for every pass
+      stage_x<CR, AFF>(x, aff_s, xs, r0 - 1, q0 - 1, 0, Ci, H, W, Ci, B);
+      __syncthreads();
+    }
+    for (int c0 = 0; c0 < Co; c0 += TCC) {
+      float acc[2][CT][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < CT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][j][e] = 0.f;
+      for (int ci0 = 0; ci0 < Ci; ci0 += ck) {
+        if (ck != Ci) {
+          stage_x<CR, AFF>(x, aff_s, xs, r0 - 1, q0 - 1, ci0, ck, H, W, Ci,
+                           B);
+          __syncthreads();
+        }
+        conv_mma(xs, wp, acc, ck, ci0 / 16, Ci / 16, c0 / TCC, Co / TCC);
+        if (ck != Ci) __syncthreads();
+      }
+
+      // [q][h]: channel c0 + 2tq + q, sample bs + 8h
+      float s1[2][2], s2[2][2], ca[2][2], cb[2][2], wr[2][3];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int co = c0 + 2 * tq + q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int b = bs + 8 * h;
+          s1[q][h] = s2[q][h] = 0.f;
+          if (OWN) {
+            ca[q][h] = b < B ? coefs[co * B + b] : 0.f;
+            cb[q][h] = b < B ? coefs[(Co + co) * B + b] : 0.f;
+          }
+        }
+        if (MODE == MODE_RGB)
+#pragma unroll
+          for (int c = 0; c < 3; ++c) wr[q][c] = wrgb[co * 3 + c];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int oh = r0 + 2 * pg + r, ow = q0 + j;
+          if (oh >= H || ow >= W) continue;   // uniform across the warp
+          const size_t p = (size_t)oh * W + ow;
+          float rgb[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int co = c0 + 2 * tq + q;
+            const float nbv = to_f(nb[p * Co + co]);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int b = bs + 8 * h;
+              const float t = lrelu(__fadd_rn(acc[r][j][2 * h + q], nbv));
+              if (SUMS) {
+                if (MODE == MODE_T && b < B)
+                  out[(p * Co + co) * B + b] = __float2bfloat16_rn(t);
+                s1[q][h] = __fadd_rn(s1[q][h], t);
+                s2[q][h] = __fadd_rn(s2[q][h], __fmul_rn(t, t));
+              } else {
+                const float o = rnd<bf16>(
+                    __fadd_rn(__fmul_rn(t, ca[q][h]), cb[q][h]));
+                if (MODE == MODE_APPLY) {
+                  if (b < B)
+                    out[(p * Co + co) * B + b] = __float2bfloat16_rn(o);
+                } else {
+#pragma unroll
+                  for (int c = 0; c < 3; ++c)
+                    rgb[h][c] = fmaf(o, wr[q][c], rgb[h][c]);
+                }
+              }
+            }
+          }
+          if (MODE == MODE_RGB) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int c = 0; c < 3; ++c) {
+                float v = rgb[h][c];
+                v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 1));
+                rgb[h][c] = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
+              }
+            if (tq < 3) {
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                float v = tq == 0 ? rgb[h][0] : tq == 1 ? rgb[h][1] : rgb[h][2];
+                const int idx =
+                    ((tq * CT + 2 * pg + r) * CT + j) * LANES + sb + 8 * h;
+                if (c0 > 0) v = __fadd_rn(rgb_s[idx], v);
+                if (c0 + TCC < Co) {
+                  rgb_s[idx] = v;
+                } else if (bs + 8 * h < B) {
+                  out[((size_t)tq * H * W + p) * B + bs + 8 * h] =
+                      __float2bfloat16_rn(__fadd_rn(v, brgb[tq]));
+                }
+              }
+            }
+          }
+        }
+      if (SUMS) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int co = c0 + 2 * tq + q, sm = sb + 8 * h;
+            atomicAdd(&red_s[co * LANES + sm], to_fixed(s1[q][h]));
+            atomicAdd(&red_s[(Co + co) * LANES + sm], to_fixed(s2[q][h]));
+          }
+      }
+    }
+    if (ck == Ci) __syncthreads();   // xs is restaged for the next tile
+  }
+  if (SUMS) flush_sums(red_s, sums, Co, B);
+}
+
+// The conv kernel: the bf16 variant on the tensor cores (conv_tc, k the
+// packed weights, ntiles tiles of CT x CT outputs, ntw of them per row, ck
+// the staging chunk; one block per SM, up to 255 registers), the f32
+// variant on the CUDA cores (conv_fma, k f32 [3, 3, Ci, Co], ntiles tiles
+// of TILE_PX pixels; at least 3 blocks per SM, up to 80 registers, since
+// one variant spilled at 64 without the hint). The tile counts come from
+// the launcher, so that they are kernel parameters and take no register.
+template <typename T, int MODE, bool AFF>
+__global__ void __launch_bounds__(LANES* NY,
+                                  std::is_same<T, bf16>::value ? 1 : 3)
+    conv3x3_kernel(const T* __restrict__ x, const void* __restrict__ k,
+                   const T* __restrict__ nb, const float* __restrict__ aff,
+                   const float* __restrict__ coefs,
+                   const float* __restrict__ wrgb,
+                   const float* __restrict__ brgb, T* __restrict__ out,
+                   acc_t* __restrict__ sums, int H, int W, int Ci, int Co,
+                   int B, int ntw, int ntiles, int ck) {
+  if constexpr (std::is_same<T, bf16>::value)
+    conv_tc<MODE, AFF>(x, static_cast<const uint2*>(k), nb, aff, coefs, wrgb,
+                       brgb, out, sums, H, W, Ci, Co, B, ntw, ntiles, ck);
+  else
+    conv_fma<T, MODE, AFF>(x, static_cast<const float*>(k), nb, aff, coefs,
+                           wrgb, brgb, out, sums, H, W, Ci, Co, B, ntiles);
+}
+
 // ---------------------------------------------------------------------------
 // The bf16 up layer's deconvolution on the tensor cores (mma.sync).
 //
@@ -310,22 +711,17 @@ __global__ void __launch_bounds__(LANES* NY, 3)
 // A fragment once per k16 step (ldmatrix .trans from the [ci][sample]
 // staging) and feeds it to the up to four outputs that read it.
 //
-// Staging. The input region, with the input affine applied in bf16 (in-
-// image pixels only; pixels outside the image and samples >= B are 0),
-// goes to xs [36][ck][32] bf16 in chunks of ck input channels. ck = Ci
-// when the whole region fits the block's shared memory (Ci <= 64 with
-// Co <= 32), and the region is then staged once per tile for all Co/UCC
-// passes; otherwise 32 or 16 channels per chunk, restaged for every pass.
-// The 16-byte chunk c of row (pixel, ci) is stored at c ^ ((ci >> 1) & 3),
-// so the eight rows of one ldmatrix phase hit distinct banks.
+// Staging (stage_x above). The input region goes to xs [ck/16][36][16][32]
+// bf16 in chunks of ck input channels. ck = Ci when the whole region fits
+// the block's shared memory (Ci <= 64 with Co <= 32), and the region is
+// then staged once per tile for all Co/UCC passes; otherwise 32 or 16
+// channels per chunk, restaged for every pass.
 //
 // Weights. pack_up_weights (ops/synthesis_tail_bc.py) lays them out as the
-// B fragments [4][4][Co/8][Ci/16][32 lanes][4 bf16]: one 8-byte load per
-// lane per (tap, pass, k16 step), read through L1/L2 (32 KB at Ci = 64,
+// B fragments [4][4][Co/8][Ci/16][32 lanes][4 bf16] (32 KB at Ci = 64,
 // Co = 32, 16 KB of it per pass).
 // ---------------------------------------------------------------------------
 
-typedef __nv_bfloat16 bf16;
 constexpr int XR = UT / 2 + 2;    // staged input region edge
 constexpr int NPIX = XR * XR;
 constexpr int NCLS = UT / 2 + 1;  // outputs per parity class and axis
@@ -334,85 +730,6 @@ template <typename T>
 constexpr int up_pass = std::is_same<T, bf16>::value ? UCC : UCC / 2;
 static_assert(NY == 8, "deconv_mma maps 4 parity classes x 2 m16 tiles "
                        "onto the 8 warps");
-
-__device__ __forceinline__ void ldsm_x4_trans(unsigned addr,
-                                              unsigned (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const unsigned (&a)[4], uint2 b) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
-}
-
-// Two bf16 in one 32-bit word (low half first) to f32 and back.
-__device__ __forceinline__ float bf_lo(unsigned w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf_hi(unsigned w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ unsigned bf_pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// affine<bf16> of two packed bf16 values.
-__device__ __forceinline__ unsigned affine2(unsigned v, unsigned a,
-                                            unsigned o) {
-  return bf_pack(affine<bf16>(bf_lo(v), bf_lo(a), bf_lo(o)),
-                 affine<bf16>(bf_hi(v), bf_hi(a), bf_hi(o)));
-}
-
-// Stage input channels [ci0, ci0 + ck) of the input region whose top-left
-// pixel is (m0, n0) into xs (layout above). Each thread moves 8 samples.
-template <bool AFF>
-__device__ void stage_x(const bf16* __restrict__ x, const bf16* aff_s,
-                        bf16* xs, int m0, int n0, int ci0, int ck, int H,
-                        int W, int Ci, int B) {
-  const int tid = threadIdx.y * LANES + threadIdx.x;
-  const bool vec = B % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  for (int i = tid; i < NPIX * ck * 4; i += LANES * NY) {
-    const int c = i & 3, row = i >> 2;   // row = pixel * ck + ci
-    const int ci = row % ck, pix = row / ck;
-    const int m = m0 + pix / XR, n = n0 + pix % XR;
-    const int b0 = blockIdx.x * LANES + c * 8;
-    uint4 q = make_uint4(0, 0, 0, 0);
-    if (m >= 0 && m < H && n >= 0 && n < W && b0 < B) {
-      const bf16* src = x + ((size_t)(m * W + n) * Ci + ci0 + ci) * B + b0;
-      if (vec) {
-        q = *reinterpret_cast<const uint4*>(src);
-      } else {
-        unsigned short e[8];
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          e[k] = b0 + k < B ? __bfloat16_as_ushort(src[k]) : 0;
-        q = make_uint4(e[0] | (unsigned)e[1] << 16, e[2] | (unsigned)e[3] << 16,
-                       e[4] | (unsigned)e[5] << 16, e[6] | (unsigned)e[7] << 16);
-      }
-      if (AFF) {
-        // identity (1, 0) for samples >= B, whose staged value stays 0
-        const uint4 a = *reinterpret_cast<const uint4*>(
-            aff_s + (ci0 + ci) * LANES + c * 8);
-        const uint4 o = *reinterpret_cast<const uint4*>(
-            aff_s + (Ci + ci0 + ci) * LANES + c * 8);
-        q = make_uint4(affine2(q.x, a.x, o.x), affine2(q.y, a.y, o.y),
-                       affine2(q.z, a.z, o.z), affine2(q.w, a.w, o.w));
-      }
-    }
-    *reinterpret_cast<uint4*>(xs + row * LANES + ((c ^ ((ci >> 1) & 3)) * 8)) =
-        q;
-  }
-}
 
 // One chunk of staged input channels (k16 steps s0 .. s0 + ck/16 of the
 // packed weights) into this warp's accumulators, for output channels
@@ -424,13 +741,9 @@ __device__ __forceinline__ void mma_chunk(const bf16* xs,
                                           int CC) {
   const int lane = threadIdx.x, cls = threadIdx.y >> 1, mt = threadIdx.y & 1;
   const int pr = cls >> 1, pc = cls & 1;
-  // this lane's ldmatrix row: input channel ci_l of the k16 step, samples
-  // of chunk 2 mt (matrices 0, 2) or 2 mt + 1 (matrices 1, 3)
-  const int ci_l = (lane & 7) + ((lane >> 4) << 3);
-  const int chunk = (2 * mt + ((lane >> 3) & 1)) ^ ((ci_l >> 1) & 3);
-  const unsigned base = (unsigned)__cvta_generic_to_shared(xs) +
-                        (unsigned)(ci_l * LANES + chunk * 8) * 2u;
+  const unsigned base = a_frag_base(xs, mt);
   for (int ks = 0; ks < ck / 16; ++ks) {
+    const unsigned kbase = base + ks * NPIX * 1024;
     uint2 bw[2][2];
 #pragma unroll
     for (int a = 0; a < 2; ++a)
@@ -443,9 +756,7 @@ __device__ __forceinline__ void mma_chunk(const bf16* xs,
 #pragma unroll
       for (int sx = 0; sx < XR; ++sx) {
         unsigned af[4];
-        ldsm_x4_trans(
-            base + (unsigned)(((sy * XR + sx) * ck + 16 * ks) * LANES * 2),
-            af);
+        ldsm_x4_trans(kbase + (sy * XR + sx) * 1024, af);
 #pragma unroll
         for (int a = 0; a < 2; ++a)
 #pragma unroll
@@ -476,8 +787,8 @@ __device__ void deconv_mma(const bf16* __restrict__ x,
       for (int r = 0; r < 4; ++r) acc[u][v][r] = 0.f;
   for (int ci0 = 0; ci0 < Ci; ci0 += ck) {
     if (ck != Ci) {
-      stage_x<AFF>(x, aff_s, xs, r0 / 2 - 1, q0 / 2 - 1, ci0, ck, H, W, Ci,
-                   B);
+      stage_x<XR, AFF>(x, aff_s, xs, r0 / 2 - 1, q0 / 2 - 1, ci0, ck, H, W,
+                       Ci, B);
       __syncthreads();
     }
     mma_chunk(xs, wp, acc, ck, ci0 / 16, Ci / 16, c0 / UCC, Co / UCC);
@@ -599,8 +910,8 @@ __global__ void __launch_bounds__(LANES* NY)
     const int r0 = (tile / ntw) * UT, q0 = (tile % ntw) * UT;
     if constexpr (TC) {
       if (ck == Ci) {   // the whole region, once for every pass
-        stage_x<AFF>(x, aff_s, xs, r0 / 2 - 1, q0 / 2 - 1, 0, Ci, H, W, Ci,
-                     B);
+        stage_x<XR, AFF>(x, aff_s, xs, r0 / 2 - 1, q0 / 2 - 1, 0, Ci, H, W,
+                         Ci, B);
         __syncthreads();
       }
     }
@@ -661,41 +972,79 @@ int grid_y(int ntiles, int groups) {
   return std::max(1, std::min(ntiles, std::max(1, MAX_BLOCKS / groups)));
 }
 
+// The staging chunk of a bf16 kernel whose other shared memory takes
+// `smem` bytes and whose input region has `npix` pixels: all of Ci if the
+// region fits the block's shared memory, else 32 or 16 channels; 0 if
+// none fits.
+int staging_chunk(int smem, int npix, int Ci) {
+  int dev = 0, max_smem = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const int chunks[3] = {Ci, 32, 16};
+  for (int c : chunks)
+    if (Ci % c == 0 && smem + npix * c * LANES * 2 <= max_smem) return c;
+  return 0;
+}
+
 template <typename T, int MODE>
-int launch_conv(const void* x, const float* k, const void* nb,
+int launch_conv(const void* x, const void* k, const void* nb,
                 const float* aff, const float* coefs, const float* wrgb,
                 const float* brgb, void* out, acc_t* sums, int H, int W,
                 int Ci, int Co, int B, int apply_aff, cudaStream_t stream) {
   // the standalone apply pass never takes an input affine
   auto kern = apply_aff ? conv3x3_kernel<T, MODE, MODE != MODE_APPLY>
                         : conv3x3_kernel<T, MODE, false>;
-  const int smem = 2 * Co * LANES * (int)sizeof(acc_t) +
-                   2 * Ci * LANES * (int)sizeof(T);
+  constexpr bool SUMS = MODE == MODE_T || MODE == MODE_STATS;
+  const int groups = (B + LANES - 1) / LANES;
+  int smem = 2 * Ci * LANES * (int)sizeof(T);
+  int ntw = 0, ntiles = 0, ck = 0, blocks_y = 0;
+  if (std::is_same<T, bf16>::value) {
+    if (SUMS) smem += 2 * Co * LANES * (int)sizeof(acc_t);
+    if (MODE == MODE_RGB) smem += 3 * CT * CT * LANES * 4;
+    ck = staging_chunk(smem, CR * CR, Ci);
+    if (ck == 0) return -3;
+    smem += CR * CR * ck * LANES * 2;
+  } else {
+    smem += 2 * Co * LANES * (int)sizeof(acc_t);
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  const int tile_px = NY * 8;
-  const int groups = (B + LANES - 1) / LANES;
-  const int ntiles = (H * W + tile_px - 1) / tile_px;
-  dim3 grid(groups, grid_y(ntiles, groups));
+  if (std::is_same<T, bf16>::value) {
+    // one wave of resident blocks, each striding over the tiles
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                      LANES * NY, smem);
+    if (e != cudaSuccess) return (int)e;
+    ntw = (W + CT - 1) / CT;
+    ntiles = ((H + CT - 1) / CT) * ntw;
+    blocks_y = std::max(1, std::min(ntiles, per_sm * sms / groups));
+  } else {
+    ntiles = (H * W + TILE_PX - 1) / TILE_PX;
+    blocks_y = grid_y(ntiles, groups);
+  }
+  dim3 grid(groups, blocks_y);
   dim3 block(LANES, NY);
   kern<<<grid, block, smem, stream>>>(
       static_cast<const T*>(x), k, static_cast<const T*>(nb), aff, coefs,
-      wrgb, brgb, static_cast<T*>(out), sums, H, W, Ci, Co, B, tile_px);
+      wrgb, brgb, static_cast<T*>(out), sums, H, W, Ci, Co, B, ntw, ntiles,
+      ck);
   return (int)cudaGetLastError();
 }
 
 template <int MODE>
-int dispatch_conv(int dtype, const void* x, const float* k, const void* nb,
+int dispatch_conv(int dtype, const void* x, const void* k, const void* nb,
                   const float* aff, const float* coefs, const float* wrgb,
                   const float* brgb, void* out, acc_t* sums, int H, int W,
                   int Ci, int Co, int B, int apply_aff, void* stream) {
-  if (Co % CC != 0) return -1;
+  if (Co % CC != 0 || (dtype == 1 && Ci % 16 != 0)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_conv<__nv_bfloat16, MODE>(x, k, nb, aff, coefs, wrgb, brgb,
-                                            out, sums, H, W, Ci, Co, B,
-                                            apply_aff, s);
+    return launch_conv<bf16, MODE>(x, k, nb, aff, coefs, wrgb, brgb, out,
+                                   sums, H, W, Ci, Co, B, apply_aff, s);
   if (dtype == 0)
     return launch_conv<float, MODE>(x, k, nb, aff, coefs, wrgb, brgb, out,
                                     sums, H, W, Ci, Co, B, apply_aff, s);
@@ -715,18 +1064,7 @@ int launch_up(const void* x, const void* k4, const void* nb,
                  (int)sizeof(T);
   int ck = 0;
   if (std::is_same<T, bf16>::value) {
-    // the staging chunk: all of Ci if the region fits, else 32 or 16
-    int dev = 0, max_smem = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&max_smem,
-                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    const int chunks[3] = {Ci, 32, 16};
-    for (int c : chunks) {
-      if (Ci % c == 0 && smem + NPIX * c * LANES * 2 <= max_smem) {
-        ck = c;
-        break;
-      }
-    }
+    ck = staging_chunk(smem, NPIX, Ci);
     if (ck == 0) return -3;
     smem += NPIX * ck * LANES * 2;
   }
@@ -764,12 +1102,16 @@ int dispatch_up(int dtype, const void* x, const void* k4, const void* nb,
 // Plain C interface (loaded with ctypes). dtype: 0 = float32, 1 = bfloat16.
 // Each function launches on `stream`, does not synchronise, and returns the
 // cudaGetLastError() code of the launch (0 on success; -1 for Co not a
-// multiple of 8 (up) or 16 (conv), or a bf16 up layer's Ci not a multiple
-// of 16; -2 for an unknown dtype; -3 for an up layer whose shared memory
+// multiple of 8 (up) or 16 (conv), or a bf16 layer's Ci not a multiple of
+// 16; -2 for an unknown dtype; -3 for a bf16 layer whose shared memory
 // does not fit a block). `sums` is int64 [2, Co, B] in units of 2^-20 (see
-// the design note), zeroed by the caller. The up layer's k4 is f32
-// [4, 4, Ci, Co] for dtype 0 and the packed bf16 fragments of
-// pack_up_weights (ops/synthesis_tail_bc.py) for dtype 1.
+// the design note), zeroed by the caller. The weights (k4 [4, 4, Ci, Co]
+// of an up layer, k [3, 3, Ci, Co] of a conv layer) are f32 for dtype 0
+// and the packed bf16 fragments of pack_mma_weights
+// (ops/synthesis_tail_bc.py) for dtype 1. The bf16 kernels run their
+// convolutions on the tensor cores with the input region of a tile staged
+// once in shared memory (what bounds them: the design note); the f32
+// kernels are CUDA-core FMA loops, kept as checks.
 extern "C" {
 
 int cfr_up_fused(int dtype, const void* x, const void* k4, const void* nb,
@@ -779,7 +1121,7 @@ int cfr_up_fused(int dtype, const void* x, const void* k4, const void* nb,
                              Ci, Co, B, apply_aff, stream);
 }
 
-int cfr_conv_fused(int dtype, const void* x, const float* k, const void* nb,
+int cfr_conv_fused(int dtype, const void* x, const void* k, const void* nb,
                    const float* aff, void* out, acc_t* sums, int H, int W,
                    int Ci, int Co, int B, int apply_aff, void* stream) {
   return dispatch_conv<MODE_T>(dtype, x, k, nb, aff, nullptr, nullptr,
@@ -787,7 +1129,7 @@ int cfr_conv_fused(int dtype, const void* x, const float* k, const void* nb,
                                apply_aff, stream);
 }
 
-int cfr_final_stats(int dtype, const void* x, const float* k, const void* nb,
+int cfr_final_stats(int dtype, const void* x, const void* k, const void* nb,
                     const float* aff, acc_t* sums, int H, int W, int Ci,
                     int Co, int B, int apply_aff, void* stream) {
   return dispatch_conv<MODE_STATS>(dtype, x, k, nb, aff, nullptr, nullptr,
@@ -795,7 +1137,7 @@ int cfr_final_stats(int dtype, const void* x, const float* k, const void* nb,
                                    apply_aff, stream);
 }
 
-int cfr_final_apply(int dtype, const void* x, const float* k, const void* nb,
+int cfr_final_apply(int dtype, const void* x, const void* k, const void* nb,
                     const float* aff, const float* coefs, const float* wrgb,
                     const float* brgb, void* out, int H, int W, int Ci,
                     int Co, int B, int apply_aff, void* stream) {
@@ -806,7 +1148,7 @@ int cfr_final_apply(int dtype, const void* x, const float* k, const void* nb,
 
 // The standalone half-layers: no input affine (apply_aff = 0).
 
-int cfr_conv_stats(int dtype, const void* x, const float* k, const void* nb,
+int cfr_conv_stats(int dtype, const void* x, const void* k, const void* nb,
                    acc_t* sums, int H, int W, int Ci, int Co, int B,
                    void* stream) {
   return dispatch_conv<MODE_STATS>(dtype, x, k, nb, nullptr, nullptr,
@@ -814,7 +1156,7 @@ int cfr_conv_stats(int dtype, const void* x, const float* k, const void* nb,
                                    Co, B, 0, stream);
 }
 
-int cfr_conv_apply(int dtype, const void* x, const float* k, const void* nb,
+int cfr_conv_apply(int dtype, const void* x, const void* k, const void* nb,
                    const float* coefs, void* out, int H, int W, int Ci,
                    int Co, int B, void* stream) {
   return dispatch_conv<MODE_APPLY>(dtype, x, k, nb, nullptr, coefs, nullptr,
@@ -822,7 +1164,7 @@ int cfr_conv_apply(int dtype, const void* x, const float* k, const void* nb,
                                    stream);
 }
 
-int cfr_conv_rgb_apply(int dtype, const void* x, const float* k,
+int cfr_conv_rgb_apply(int dtype, const void* x, const void* k,
                        const void* nb, const float* coefs, const float* wrgb,
                        const float* brgb, void* out, int H, int W, int Ci,
                        int Co, int B, void* stream) {

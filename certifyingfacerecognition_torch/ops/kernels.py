@@ -65,13 +65,14 @@ def cuda_tool(name: str) -> str:
     return os.path.join(os.path.dirname(_nvcc()), name)
 
 
-def build(name: str) -> Path:
+def build(name: str, force: bool = False) -> Path:
     """Compile SOURCES[name] into build_dir() unless an up-to-date library
-    is there already. Returns the library path; raises on a failed build."""
+    is there already (or ``force``: compile again, for nvcc's log in
+    BUILD_LOG). Returns the library path; raises on a failed build."""
     src = SOURCES[name]
     tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = build_dir() / f"{name}-{tag}.so"
-    if out.is_file():
+    if out.is_file() and not force:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)

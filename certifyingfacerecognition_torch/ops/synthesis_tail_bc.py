@@ -236,37 +236,50 @@ def _cuda_args(x, weight, nb, aff, kshape, nb_hw, co_mult):
             torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def pack_up_weights(k4: torch.Tensor) -> torch.Tensor:
-    """k4 [4, 4, Ci, Co] -> the bf16 up kernel's weights in the order of
-    the B fragments of ``mma.m16n8k16`` (K = input channels, N = output
-    channels): [4, 4, Co/8, Ci/16, 32, 4]. Entry [kh, kw, cc, s, 4g + t]
+def pack_mma_weights(k: torch.Tensor) -> torch.Tensor:
+    """k [kh, kw, Ci, Co] -> the bf16 kernels' weights in the order of the
+    B fragments of ``mma.m16n8k16`` (K = input channels, N = output
+    channels): [kh, kw, Co/8, Ci/16, 32, 4]. Entry [dy, dx, cc, s, 4g + t]
     is what lane 4g + t of a warp holds for output channel 8cc + g and
     the input channels 16s + 2t + (0, 1, 8, 9), so each lane loads its
     fragment of one (tap, 8 output channels, 16 input channels) step with
     one 8-byte load. The values are cast to bf16 (exact for weights that
     already hold bf16 values)."""
-    kh, kw, ci, co = k4.shape
-    if (kh, kw) != (4, 4) or ci % 16 or co % 8:
+    kh, kw, ci, co = k.shape
+    if ci % 16 or co % 8:
+        raise ValueError(f"pack_mma_weights takes [kh, kw, Ci, Co] with Ci a "
+                         f"multiple of 16 and Co of 8, got {tuple(k.shape)}")
+    # input channel 16s + 8h + 2t + p, output channel 8cc + g
+    kk = k.to(torch.bfloat16).reshape(kh, kw, ci // 16, 2, 4, 2, co // 8, 8)
+    return kk.permute(0, 1, 6, 2, 7, 4, 3, 5).reshape(
+        kh, kw, co // 8, ci // 16, 32, 4).contiguous()
+
+
+def pack_up_weights(k4: torch.Tensor) -> torch.Tensor:
+    """k4 [4, 4, Ci, Co] -> the bf16 up kernel's packed weights
+    [4, 4, Co/8, Ci/16, 32, 4] (``pack_mma_weights``)."""
+    if tuple(k4.shape[:2]) != (4, 4) or k4.shape[2] % 16 or k4.shape[3] % 8:
         raise ValueError(f"pack_up_weights takes [4, 4, Ci, Co] with Ci a "
                          f"multiple of 16 and Co of 8, got {tuple(k4.shape)}")
-    # input channel 16s + 8h + 2t + p, output channel 8cc + g
-    k = k4.to(torch.bfloat16).reshape(4, 4, ci // 16, 2, 4, 2, co // 8, 8)
-    return k.permute(0, 1, 6, 2, 7, 4, 3, 5).reshape(
-        4, 4, co // 8, ci // 16, 32, 4).contiguous()
+    return pack_mma_weights(k4)
 
 
-def _up_args(x, k4, nb, aff):
-    """_cuda_args of an up-layer launch; the bf16 kernel takes its weights
-    packed (pack_up_weights) and needs Ci a multiple of 16."""
+def _layer_args(x, weight, nb, aff, up):
+    """_cuda_args of an up-layer (``up``) or conv-layer launch, returning
+    (dtype code, weights, Co, nb, aff, stream). The bf16 kernels run on
+    the tensor cores: they take their weights packed (pack_mma_weights)
+    and need Ci a multiple of 16."""
     h, w, ci, _ = x.shape
-    code, kf, nbt, af, stream = _cuda_args(x, k4, nb, aff, (4, 4),
-                                           (2 * h, 2 * w), 8)
+    code, kf, nbt, af, stream = _cuda_args(
+        x, weight, nb, aff, (4, 4) if up else (3, 3),
+        (2 * h, 2 * w) if up else (h, w), 8 if up else 16)
+    co = kf.shape[3]
     if x.dtype == torch.bfloat16:
         if ci % 16:
-            raise ValueError(f"the bf16 up kernel needs input channels a "
-                             f"multiple of 16, got {ci}")
-        return code, pack_up_weights(kf), kf.shape[3], nbt, af, stream
-    return code, kf, kf.shape[3], nbt, af, stream
+            raise ValueError(f"the bf16 {'up' if up else 'conv'} kernel needs "
+                             f"input channels a multiple of 16, got {ci}")
+        kf = pack_mma_weights(kf)
+    return code, kf, co, nbt, af, stream
 
 
 def _coefs_arg(coefs, co, b, device):
@@ -315,7 +328,7 @@ def up_fused(x, k4, nb, aff, *, apply_aff=True):
     if x.device.type == "cpu":
         return up_fused_ref(x, k4, nb, aff, apply_aff=apply_aff)
     h, w, ci, b = x.shape
-    code, kf, co, nbt, af, stream = _up_args(x, k4, nb, aff)
+    code, kf, co, nbt, af, stream = _layer_args(x, k4, nb, aff, up=True)
     out = torch.empty((2 * h, 2 * w, co, b), dtype=x.dtype, device=x.device)
     sums = _sums_buffer(co, b, x.device)
     with torch.cuda.device(x.device):
@@ -331,9 +344,7 @@ def conv_fused(x, k, nb, aff, *, apply_aff=True):
     if x.device.type == "cpu":
         return conv_fused_ref(x, k, nb, aff, apply_aff=apply_aff)
     h, w, ci, b = x.shape
-    code, kf, nbt, af, stream = _cuda_args(x, k, nb, aff, (3, 3), (h, w),
-                                           16)
-    co = kf.shape[3]
+    code, kf, co, nbt, af, stream = _layer_args(x, k, nb, aff, up=False)
     out = torch.empty((h, w, co, b), dtype=x.dtype, device=x.device)
     sums = _sums_buffer(co, b, x.device)
     with torch.cuda.device(x.device):
@@ -349,9 +360,7 @@ def final_stats(x, k, nb, aff, *, apply_aff=True):
     if x.device.type == "cpu":
         return final_stats_ref(x, k, nb, aff, apply_aff=apply_aff)
     h, w, ci, b = x.shape
-    code, kf, nbt, af, stream = _cuda_args(x, k, nb, aff, (3, 3), (h, w),
-                                           16)
-    co = kf.shape[3]
+    code, kf, co, nbt, af, stream = _layer_args(x, k, nb, aff, up=False)
     sums = _sums_buffer(co, b, x.device)
     with torch.cuda.device(x.device):
         _launch("final_stats", _lib().cfr_final_stats, code, x.data_ptr(),
@@ -367,9 +376,7 @@ def final_apply(x, k, nb, aff, coefs, w_rgb, b_rgb, *, apply_aff=True):
         return final_apply_ref(x, k, nb, aff, coefs, w_rgb, b_rgb,
                                apply_aff=apply_aff)
     h, w, ci, b = x.shape
-    code, kf, nbt, af, stream = _cuda_args(x, k, nb, aff, (3, 3), (h, w),
-                                           16)
-    co = kf.shape[3]
+    code, kf, co, nbt, af, stream = _layer_args(x, k, nb, aff, up=False)
     cf = _coefs_arg(coefs, co, b, x.device)
     wr, br = _rgb_args(w_rgb, b_rgb, co, x)
     img = torch.empty((3, h, w, b), dtype=x.dtype, device=x.device)
@@ -387,8 +394,7 @@ def conv_stats(x, k, nb):
     if x.device.type == "cpu":
         return conv_stats_ref(x, k, nb)
     h, w, ci, b = x.shape
-    code, kf, nbt, _, stream = _cuda_args(x, k, nb, None, (3, 3), (h, w), 16)
-    co = kf.shape[3]
+    code, kf, co, nbt, _, stream = _layer_args(x, k, nb, None, up=False)
     sums = _sums_buffer(co, b, x.device)
     with torch.cuda.device(x.device):
         _launch("conv_stats", _lib().cfr_conv_stats, code, x.data_ptr(),
@@ -403,8 +409,7 @@ def conv_apply(x, k, nb, coefs):
     if x.device.type == "cpu":
         return conv_apply_ref(x, k, nb, coefs)
     h, w, ci, b = x.shape
-    code, kf, nbt, _, stream = _cuda_args(x, k, nb, None, (3, 3), (h, w), 16)
-    co = kf.shape[3]
+    code, kf, co, nbt, _, stream = _layer_args(x, k, nb, None, up=False)
     cf = _coefs_arg(coefs, co, b, x.device)
     out = torch.empty((h, w, co, b), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -421,8 +426,7 @@ def conv_rgb_apply(x, k, nb, coefs, w_rgb, b_rgb):
     if x.device.type == "cpu":
         return conv_rgb_apply_ref(x, k, nb, coefs, w_rgb, b_rgb)
     h, w, ci, b = x.shape
-    code, kf, nbt, _, stream = _cuda_args(x, k, nb, None, (3, 3), (h, w), 16)
-    co = kf.shape[3]
+    code, kf, co, nbt, _, stream = _layer_args(x, k, nb, None, up=False)
     cf = _coefs_arg(coefs, co, b, x.device)
     wr, br = _rgb_args(w_rgb, b_rgb, co, x)
     img = torch.empty((3, h, w, b), dtype=x.dtype, device=x.device)
@@ -440,7 +444,7 @@ def up_stats(x, k4, nb):
     if x.device.type == "cpu":
         return up_stats_ref(x, k4, nb)
     h, w, ci, b = x.shape
-    code, kf, co, nbt, _, stream = _up_args(x, k4, nb, None)
+    code, kf, co, nbt, _, stream = _layer_args(x, k4, nb, None, up=True)
     sums = _sums_buffer(co, b, x.device)
     with torch.cuda.device(x.device):
         _launch("up_stats", _lib().cfr_up_stats, code, x.data_ptr(),
@@ -455,7 +459,7 @@ def up_apply(x, k4, nb, coefs):
     if x.device.type == "cpu":
         return up_apply_ref(x, k4, nb, coefs)
     h, w, ci, b = x.shape
-    code, kf, co, nbt, _, stream = _up_args(x, k4, nb, None)
+    code, kf, co, nbt, _, stream = _layer_args(x, k4, nb, None, up=True)
     cf = _coefs_arg(coefs, co, b, x.device)
     out = torch.empty((2 * h, 2 * w, co, b), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

@@ -5,16 +5,18 @@
 Runs straight through and raises (exit code != 0) on any failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
-2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a) and
-   counts the tensor-core (HMMA) instructions of each up_kernel
-   instantiation in the library's SASS (cuobjdump); every bf16 one must
-   have some;
+2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a),
+   prints ptxas's registers and spills, and counts the tensor-core (HMMA)
+   instructions of each up_kernel and conv3x3_kernel instantiation in the
+   library's SASS (cuobjdump); every bf16 one must have some and no
+   spill, every f32 one none;
 3. each kernel of the synthesis tail against its plain PyTorch version at
    the 1024^2 tail's shapes (B = 8), bf16 and f32: the four chain kernels
    with and without the input affine, the five passes of the standalone
    half-layers, the up layer also at CFR_TAIL_MIN_RES=128's first up layer
-   (64^2 -> 128^2, 256 -> 128 channels), and the whole kernel chain
-   against a plain chain;
+   (64^2 -> 128^2, 256 -> 128 channels) and the conv layers at its
+   widest shapes (128^2 128 -> 128, 256^2 64 -> 64), and the whole kernel
+   chain against a plain chain;
 4. each kernel's time at B = 128 (CUDA events, median of 5) beside its
    plain version's time, its roofline bound and the time of cuDNN's
    convolution of the same layer (the library yardstick);
@@ -169,14 +171,23 @@ STANDALONE_LAYERS = [
 WIDE_UP_LAYERS = [("up_fused", "up", 64, 256, 128),
                   ("up_stats", "up", 64, 256, 128),
                   ("up_apply", "up", 64, 256, 128)]
+# checked, not timed: the conv layers of CFR_TAIL_MIN_RES=128's tail at
+# 128^2 and 256^2, where the bf16 kernel stages its input in chunks of 16
+# channels and the widest conv shape (Ci = Co = 128) is reached
+WIDE_CONV_LAYERS = [(name, "conv", h, c, c) for h, c in ((128, 128),
+                                                         (256, 64))
+                    for name in ("conv_fused", "final_stats", "final_apply",
+                                 "conv_stats", "conv_apply",
+                                 "conv_rgb_apply")]
 
 
 def check_kernels(bc, gen):
     """Phase 3: every kernel against its plain version on the card."""
     worst = {}
-    cases = [(L, aff) for L in LAYERS + WIDE_UP_LAYERS
+    wide = WIDE_UP_LAYERS + WIDE_CONV_LAYERS
+    cases = [(L, aff) for L in LAYERS + wide
              if L[0] in CHAIN for aff in (False, True)] + \
-        [(L, False) for L in STANDALONE_LAYERS + WIDE_UP_LAYERS
+        [(L, False) for L in STANDALONE_LAYERS + wide
          if L[0] in STANDALONE]
     for (name, kind, h, ci, co), apply_aff in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -203,9 +214,23 @@ def check_kernels(bc, gen):
     return worst
 
 
-def up_kernel_hmma(lib_path):
-    """{"up_kernel<T, MODE, AFF>": HMMA instructions} of every up_kernel
-    instantiation in the built library's SASS (cuobjdump -sass)."""
+_KERNEL_NAME = re.compile(
+    r"(up_kernel|conv3x3_kernel)I(13__nv_bfloat16|f)Li(\d)ELb(\d)E")
+
+
+def _kernel_name(mangled):
+    """"conv3x3_kernel<bf16, MODE 0, AFF 1>" for a mangled instantiation of
+    up_kernel or conv3x3_kernel, else None."""
+    m = _KERNEL_NAME.search(mangled)
+    return None if m is None else (
+        f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, MODE {m[3]}, "
+        f"AFF {m[4]}>")
+
+
+def kernel_hmma(lib_path):
+    """{"up_kernel<T, MODE, AFF>" or "conv3x3_kernel<...>": HMMA
+    instructions} of every instantiation in the built library's SASS
+    (cuobjdump -sass)."""
     from certifyingfacerecognition_torch.ops import kernels
 
     sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass",
@@ -214,16 +239,64 @@ def up_kernel_hmma(lib_path):
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"up_kernelI(13__nv_bfloat16|f)Li(\d)ELb(\d)E",
-                          line)
-            fn = None if m is None else (
-                f"up_kernel<{'bf16' if m[1] != 'f' else 'f32'}, "
-                f"MODE {m[2]}, AFF {m[3]}>")
+            fn = _kernel_name(line)
             if fn is not None:
                 counts[fn] = 0
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def kernel_spills(ptxas_log):
+    """{kernel instantiation: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v log."""
+    out, fn = {}, None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = _kernel_name(m[1])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            out[fn] = [0, int(m[1]), int(m[2])]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in out:
+            out[fn][0] = int(m[1])
+            fn = None
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def check_build(kernels):
+    """Phase 2: build the library (again, if it was cached, for ptxas's
+    log), then every bf16 instantiation of both kernels must hold HMMA
+    instructions and spill nothing, and every f32 one hold none."""
+    t0 = time.time()
+    path = kernels.build("synthesis_tail_bc")
+    if "synthesis_tail_bc" not in kernels.BUILD_LOG:
+        path = kernels.build("synthesis_tail_bc", force=True)
+    kernels.library("synthesis_tail_bc")
+    info = kernels.BUILD_LOG["synthesis_tail_bc"]
+    log(f"build: {time.time() - t0:.1f} s ({info['cmd']})")
+    spills = kernel_spills(info["log"])
+    hmma = kernel_hmma(path)
+    for fn in sorted(hmma):
+        regs, st, ld = spills.get(fn, (None, None, None))
+        log(f"  {fn}: {hmma[fn]} HMMA instructions, {regs} registers, "
+            f"spill stores {st} B, loads {ld} B")
+    kinds = {(fn.split("<")[0], "bf16" in fn) for fn in hmma}
+    if kinds != {(k, tc) for k in ("up_kernel", "conv3x3_kernel")
+                 for tc in (False, True)}:
+        raise AssertionError(f"kernel instantiations missing: {hmma}")
+    bad = [fn for fn, n in hmma.items() if (n > 0) != ("bf16" in fn)]
+    # an instantiation missing from ptxas's log counts as spilling
+    bad += [fn for fn in hmma if "bf16" in fn
+            and spills.get(fn, (0, 1, 1))[1:] != (0, 0)]
+    if bad:
+        raise AssertionError(f"a bf16 kernel without tensor-core "
+                             f"instructions or with a spill, or an f32 one "
+                             f"with them: {bad}")
 
 
 def plain_chain(bc, x, blocks, eps=1e-8):
@@ -396,14 +469,14 @@ def library_call(name, a):
 def bound(name, h, ci, co, b):
     """(bound_ms, bytes ms, operations ms, bytes read, bytes written) of
     one launch: the least time for the bytes the kernel must move (inputs
-    read once, outputs written once; bf16 activations and nb, f32
-    weights, affines, coefs and sums as the kernel takes them) and for its
-    MACs on the bf16 tensor cores (the up layer's transposed conv does 2x2
-    taps per output). A standalone pass reads no input affine; a stats
+    read once, outputs written once; bf16 activations, nb and packed
+    weights, f32 affines, coefs and sums as the kernel takes them) and for
+    its MACs on the bf16 tensor cores (the up layer's transposed conv does
+    2x2 taps per output). A standalone pass reads no input affine; a stats
     pass writes only its sums."""
     up = name.startswith("up")
     out_hw = (2 * h) ** 2 if up else h * h
-    read = h * h * ci * b * 2 + (16 if up else 9) * ci * co * 4 \
+    read = h * h * ci * b * 2 + (16 if up else 9) * ci * co * 2 \
         + out_hw * co * 2 + (2 * ci * b * 4 if name in CHAIN else 0)
     sums = 2 * co * b * 4
     write = {"up_fused": out_hw * co * b * 2 + sums,
@@ -782,20 +855,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    t0 = time.time()
-    kernels.library("synthesis_tail_bc")
-    info = kernels.BUILD_LOG.get("synthesis_tail_bc", {})
-    log(f"build: {time.time() - t0:.1f} s ({info.get('cmd', 'cached')})")
-    for line in info.get("log", "").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  ptxas: " + line.strip())
-    hmma = up_kernel_hmma(kernels.build("synthesis_tail_bc"))
-    for fn, n in sorted(hmma.items()):
-        log(f"  SASS {fn}: {n} HMMA instructions")
-    bf16_up = {fn: n for fn, n in hmma.items() if "bf16" in fn}
-    if not bf16_up or not all(bf16_up.values()):
-        raise AssertionError(f"a bf16 up_kernel has no tensor-core "
-                             f"instruction: {hmma}")
+    check_build(kernels)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernels(bc, gen)

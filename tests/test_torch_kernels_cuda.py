@@ -147,23 +147,67 @@ def test_up_kernels_match_plain_ragged(gen, dtype, ci, co, b):
                for n in ("up_stats", "up_apply"))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [40, 12])
+@pytest.mark.parametrize("c", [16, 32, 64, 128])
+def test_conv_kernels_match_plain_ragged(gen, dtype, c, b):
+    """The six conv-kernel entry points at Ci = Co = c, with ragged tiles
+    (H = 5: one 8x8 tile, 5x5 of it in the image), a ragged sample group
+    (B = 40; B = 12 also takes the bf16 kernel's unaligned staging path),
+    the bf16 kernel's input staged whole (c <= 32) or in chunks (64, 128),
+    and the ToRGB's channel sum over several passes (c > 16)."""
+    h = 5
+    x = _randn((h, h, c, b), gen).to(dtype)
+    aff = torch.stack([_randn((c, b), gen, 0.3) + 1, _randn((c, b), gen)])
+    k = _randn((3, 3, c, c), gen, (2.0 / (9 * c)) ** 0.5)
+    nb = _randn((h, h, c), gen, 0.1)
+    coefs = torch.stack([_randn((c, b), gen, 0.3) + 1, _randn((c, b), gen)])
+    w_rgb, b_rgb = _randn((c, 3), gen, c ** -0.5), _randn((3,), gen, 0.1)
+    names = ("conv_fused", "final_stats", "final_apply", "conv_stats",
+             "conv_apply", "conv_rgb_apply")
+    before = dict(bc.LAUNCHES)
+    for apply_aff in (True, False):
+        t, s = bc.conv_fused(x, k, nb, aff, apply_aff=apply_aff)
+        tr, sr = bc.conv_fused_ref(x, k, nb, aff, apply_aff=apply_aff)
+        _close(t, tr, TOL[dtype])
+        _sums_close(s, sr)
+        _sums_close(bc.final_stats(x, k, nb, aff, apply_aff=apply_aff),
+                    bc.final_stats_ref(x, k, nb, aff, apply_aff=apply_aff))
+        _close(bc.final_apply(x, k, nb, aff, coefs, w_rgb, b_rgb,
+                              apply_aff=apply_aff),
+               bc.final_apply_ref(x, k, nb, aff, coefs, w_rgb, b_rgb,
+                                  apply_aff=apply_aff), TOL[dtype])
+    _sums_close(bc.conv_stats(x, k, nb), bc.conv_stats_ref(x, k, nb))
+    _close(bc.conv_apply(x, k, nb, coefs), bc.conv_apply_ref(x, k, nb, coefs),
+           TOL[dtype])
+    _close(bc.conv_rgb_apply(x, k, nb, coefs, w_rgb, b_rgb),
+           bc.conv_rgb_apply_ref(x, k, nb, coefs, w_rgb, b_rgb), TOL[dtype])
+    assert all(bc.LAUNCHES[n] == before[n] + (2 if n in names[:3] else 1)
+               for n in names)
+
+
 @pytest.mark.parametrize("h,ci,co", [(16, 32, 16), (5, 64, 32)])
 def test_kernels_are_deterministic(gen, h, ci, co):
     """The fixed-point sums do not depend on the order of the atomic adds,
-    and the bf16 up kernel's tensor-core deconv sums in a fixed order per
-    thread, so a second launch on the same inputs gives the same bits (also
-    at ragged tiles, h = 5)."""
+    the bf16 kernels' tensor-core convolutions and sums run in a fixed
+    order per thread, and the bf16 ToRGB sums over a quad's lanes in a
+    fixed order, so a second launch on the same inputs gives the same bits
+    (also at ragged tiles, h = 5)."""
     b = 40
     x = _randn((h, h, ci, b), gen).to(torch.bfloat16)
     aff = torch.stack([_randn((ci, b), gen, 0.3) + 1, _randn((ci, b), gen)])
     aff2 = torch.stack([_randn((co, b), gen, 0.3) + 1, _randn((co, b), gen)])
     k4, nb = _randn((4, 4, ci, co), gen, 0.2), _randn((2 * h, 2 * h, co), gen)
     k, nbc = _randn((3, 3, co, co), gen, 0.2), _randn((2 * h, 2 * h, co), gen)
+    coefs = torch.stack([_randn((co, b), gen, 0.3) + 1, _randn((co, b), gen)])
+    w_rgb, b_rgb = _randn((co, 3), gen, 0.3), _randn((3,), gen)
 
     def run():
         t, s = bc.up_fused(x, k4, nb, aff)
-        return (t, s, bc.conv_fused(t, k, nbc, aff2)[1],
-                bc.up_stats(x, k4, nb), bc.conv_stats(t, k, nbc))
+        return (t, s, *bc.conv_fused(t, k, nbc, aff2),
+                bc.up_stats(x, k4, nb), bc.conv_stats(t, k, nbc),
+                bc.final_apply(t, k, nbc, aff2, coefs, w_rgb, b_rgb),
+                bc.conv_rgb_apply(t, k, nbc, coefs, w_rgb, b_rgb))
 
     for a, b in zip(run(), run()):
         assert torch.equal(a, b)
@@ -211,6 +255,21 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(gen):
                  lambda k, nb: bc.up_fused(x24, k, nb, aff24)):
         with pytest.raises(ValueError, match="multiple of 16"):
             call(_randn((4, 4, 24, 8), gen), _randn((16, 16, 8), gen))
+    # and so do the bf16 conv kernels'
+    k24, nb24 = _randn((3, 3, 24, 16), gen), _randn((8, 8, 16), gen)
+    coefs = torch.stack([torch.ones((16, 8), device="cuda"),
+                         torch.zeros((16, 8), device="cuda")])
+    w_rgb, b_rgb = _randn((16, 3), gen), _randn((3,), gen)
+    for call in (lambda: bc.conv_fused(x24, k24, nb24, aff24),
+                 lambda: bc.final_stats(x24, k24, nb24, aff24),
+                 lambda: bc.final_apply(x24, k24, nb24, aff24, coefs, w_rgb,
+                                        b_rgb),
+                 lambda: bc.conv_stats(x24, k24, nb24),
+                 lambda: bc.conv_apply(x24, k24, nb24, coefs),
+                 lambda: bc.conv_rgb_apply(x24, k24, nb24, coefs, w_rgb,
+                                           b_rgb)):
+        with pytest.raises(ValueError, match="multiple of 16"):
+            call()
     with pytest.raises(ValueError, match="contiguous"):
         bc.conv_fused(x.transpose(0, 1), _randn((3, 3, 16, 16), gen),
                       _randn((8, 8, 16), gen), aff)
