@@ -1,6 +1,8 @@
 """Certification CLI (port of certifyingfacerecognition_tpu/cli/certify.py):
-randomized-smoothing certification of identities with a fixed Monte-Carlo
-budget, on one CUDA device by default (--device cpu runs on the CPU).
+randomized-smoothing certification of identities, with a fixed Monte-Carlo
+budget or early stopping (--adaptive), at the native or a reduced
+synthesis resolution (--synthesis-resolution, --cascade), on one CUDA
+device by default (--device cpu runs on the CPU).
 
 Same flags, defaults and TSV schema (``idx label predict correct gap radius
 time``, one row appended per identity) as the JAX CLI:
@@ -34,15 +36,6 @@ TSV_HEADER = "idx\tlabel\tpredict\tcorrect\tgap\tradius\ttime"
 
 # flag -> (default, ROADMAP item of ROADMAP.md "Open items" 1 porting it)
 _NOT_PORTED = {
-    "synthesis_resolution": (None, "11 (reduced resolution and cascade)"),
-    "cascade": (False, "11 (reduced resolution and cascade)"),
-    "native_embs_file": (None, "11 (reduced resolution and cascade)"),
-    "adaptive": ("off", "8 (adaptive certification)"),
-    "adaptive_chunk_batches": (8, "8 (adaptive certification)"),
-    "adaptive_engine": ("host", "8 (adaptive certification)"),
-    "adaptive_group": (1, "8 (adaptive certification)"),
-    "adaptive_slack": (0.1, "8 (adaptive certification)"),
-    "adaptive_gap_target": (None, "8 (adaptive certification)"),
     "mesh": (False, "9 (parallel runs)"),
     "mesh_id": (1, "9 (parallel runs)"),
     "multihost": (False, "9 (parallel runs)"),
@@ -94,24 +87,78 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--boundaries-dir", type=str, default=None)
     parser.add_argument("--resolution", type=int, default=1024)
     parser.add_argument("--synthesis-resolution", type=int, default=None,
-                        help="not ported yet")
+                        help="Truncate synthesis at this resolution (uses "
+                             "the matching early layers + ToRGB head of the "
+                             "--resolution weights). The FRM consumes 112^2 "
+                             "either way. Gallery embeddings must be "
+                             "computed at the same synthesis resolution; the "
+                             "default cache name is then "
+                             "embs_<model>_sr<res>.npz (cfr-attack-torch with "
+                             "the same --synthesis-resolution produces it).")
     parser.add_argument("--cascade", action="store_true", default=False,
-                        help="not ported yet")
+                        help="Decision-safe reduced-resolution mode: run the "
+                             "MC loop at --synthesis-resolution, and any "
+                             "identity whose fast-path prediction matches its "
+                             "label is RE-CERTIFIED at the native "
+                             "--resolution before its row is written: every "
+                             "emitted correct/certified row is native-grade "
+                             "by construction, while rejections and "
+                             "abstentions keep the fast path. The residual "
+                             "deviation is conservative (a fast-path "
+                             "rejection the native model would certify "
+                             "loses that certification, never invents one).")
     parser.add_argument("--native-embs-file", type=str, default=None,
-                        help="not ported yet")
+                        help="With --cascade: native-resolution gallery "
+                             "embeddings (defaults to embs_<model>.npz in "
+                             "--data-dir; --embs-file names the reduced-"
+                             "resolution gallery)")
     parser.add_argument("--adaptive", type=str, default="off",
                         choices=["off", "guaranteed", "sequential"],
-                        help="not ported yet (only 'off')")
+                        help="Early-stopping certification "
+                             "(smoothing/smooth.certify_adaptive). "
+                             "'guaranteed': deterministic futility bounds: "
+                             "emitted certify/abstain decisions are provably "
+                             "identical to the fixed-N run for the same seed "
+                             "(certified radii conservative within "
+                             "--adaptive-slack). 'sequential': "
+                             "alpha-spending checkpoints: much earlier "
+                             "stops for clear-cut identities, decisions "
+                             "aligned with fixed-N only statistically "
+                             "(coverage still holds at --alpha). Off by "
+                             "default: the reference estimator is fixed-N.")
     parser.add_argument("--adaptive-chunk-batches", type=int, default=8,
-                        help="not ported yet")
+                        help="Batches between early-stop checks (each check "
+                             "is one read of the device by the host)")
     parser.add_argument("--adaptive-engine", type=str, default="host",
-                        choices=["host", "device"], help="not ported yet")
+                        choices=["host", "device"],
+                        help="'host': reads the running success count at "
+                             "each check and evaluates the stopping rules on "
+                             "the host. 'device': counts, success count and "
+                             "status stay on the device, which compares the "
+                             "count with precomputed Clopper-Pearson integer "
+                             "thresholds (smoothing/adaptive_device.py); the "
+                             "host reads one status per check. Identical "
+                             "results except guaranteed-mode "
+                             "--adaptive-gap-target (documented there)")
     parser.add_argument("--adaptive-group", type=int, default=1,
-                        help="not ported yet")
+                        help="Device engine only: certify this many "
+                             "identities per call, each with its own early "
+                             "exit, with one read of their results (results "
+                             "per identity are identical to group 1; the TSV "
+                             "time is the group's split evenly). "
+                             "Incompatible with --cascade.")
     parser.add_argument("--adaptive-slack", type=float, default=0.1,
-                        help="not ported yet")
+                        help="Stop a settled certification once its "
+                             "(conservative) gap is within this fraction of "
+                             "the best still-achievable gap")
     parser.add_argument("--adaptive-gap-target", type=float, default=None,
-                        help="not ported yet")
+                        help="Deployment question 'certified at radius >= "
+                             "sigma_min * TARGET?': stop as soon as that bit "
+                             "is settled. In guaranteed mode the at-target "
+                             "answer matches the fixed-N run per seed; this "
+                             "is where guaranteed mode's large certify-side "
+                             "savings come from (without it, full-radius "
+                             "certifications must run to ~N by construction)")
     parser.add_argument("--dtype", type=str, default="fp32",
                         choices=["fp32", "bf16"])
     parser.add_argument("--mesh", action="store_true", default=False,
@@ -144,9 +191,13 @@ def _reject_unported(args) -> None:
                              f"items' 1, item {item}")
 
 
-def load_gallery(args, embs_file=None) -> np.ndarray:
-    path = embs_file or osp.join(args.data_dir,
-                                 f"embs_{args.face_recog_model}.npz")
+def load_gallery(args, synthesis_resolution=None,
+                 embs_file=None) -> np.ndarray:
+    """The gallery embeddings; reduced-resolution ones have their own
+    default name (cli/main_attack.get_embs writes it)."""
+    sr = f"_sr{synthesis_resolution}" if synthesis_resolution else ""
+    path = embs_file or osp.join(
+        args.data_dir, f"embs_{args.face_recog_model}{sr}.npz")
     embs = W.load_embeddings(path, mmap=True)[: args.load_n_embs]
     return np.asarray(embs, np.float32)
 
@@ -182,12 +233,24 @@ def main(argv=None) -> None:
 
     dataset = np.load(osp.join(args.data_dir, "w.npy"), mmap_mode="r")
     dataset = dataset[: args.load_n_embs]
-    gallery = load_gallery(args, args.embs_file)
+    gallery = load_gallery(args, args.synthesis_resolution, args.embs_file)
     assert len(gallery) == len(dataset), \
         f"{len(gallery)} embeddings vs {len(dataset)} latents"
     num_classes = dataset.shape[0]
     print(f"Found {num_classes} classes")
     print(f"Found {num_dirs} directions")
+
+    if args.cascade and not (args.synthesis_resolution
+                             and args.synthesis_resolution < args.resolution):
+        raise SystemExit("--cascade requires --synthesis-resolution below "
+                         "--resolution (it is the fast path being verified)")
+    if args.adaptive != "off" and args.adaptive_group > 1:
+        if args.adaptive_engine != "device":
+            raise SystemExit("--adaptive-group > 1 requires "
+                             "--adaptive-engine device")
+        if args.cascade:
+            raise SystemExit("--adaptive-group is incompatible with "
+                             "--cascade")
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     gen_params = W.load_generator_params(args.gen_weights,
@@ -201,14 +264,29 @@ def main(argv=None) -> None:
     else:
         sigma = np.full((num_dirs,), args.sigma, np.float32)
 
-    pipe = FacePipeline(gen_params, frm_params, dirs=torch.as_tensor(dirs),
-                        frs_method=args.face_recog_model,
-                        resolution=args.resolution, dtype=dtype,
-                        gallery=torch.as_tensor(gallery), device=device)
-    predict_fn, params = pipe.predict_fn_with_params()
-    smoothed = Smooth(predict_fn, num_classes, sigma, L2Certificate(),
+    def build_smoothed(gallery_arr, resolution):
+        """FacePipeline + Smooth at a synthesis resolution: built once for
+        the main path, twice under --cascade (fast reduced-resolution +
+        native verifier)."""
+        pipe = FacePipeline(gen_params, frm_params,
+                            dirs=torch.as_tensor(dirs),
+                            frs_method=args.face_recog_model,
+                            resolution=resolution, dtype=dtype,
+                            gallery=torch.as_tensor(gallery_arr),
+                            device=device)
+        predict_fn, params = pipe.predict_fn_with_params()
+        return Smooth(predict_fn, num_classes, sigma, L2Certificate(),
                       noise_dim=num_dirs, batch_size=args.batch_sz,
                       params=params, device=device)
+
+    smoothed = build_smoothed(gallery,
+                              args.synthesis_resolution or args.resolution)
+    smoothed_native = None
+    if args.cascade:
+        native_gallery = load_gallery(args, None, args.native_embs_file)
+        assert len(native_gallery) == num_classes, \
+            f"native gallery {len(native_gallery)} vs {num_classes} latents"
+        smoothed_native = build_smoothed(native_gallery, args.resolution)
 
     os.makedirs(osp.dirname(osp.abspath(args.outfile)), exist_ok=True)
     done = set()
@@ -225,20 +303,70 @@ def main(argv=None) -> None:
             print(TSV_HEADER, file=f, flush=True)
 
     x = np.zeros((num_dirs,), np.float32)
-    for i in identity_order(num_classes, args.skip, args.max, args.chunks,
-                            args.num_chunk):
-        if i in done:
-            continue
-        before = time()
-        prediction, gap = smoothed.certify(
-            dataset[i], x, i, args.N0, args.N, args.alpha,
-            identity_generator(args.seed, i, pipe.device))
-        elapsed = str(datetime.timedelta(seconds=time() - before))
-        correct = int(prediction == i)
-        radius = float(np.min(sigma)) * gap
+    radius_scale = float(np.min(sigma))
+    adaptive_kw = dict(mode=args.adaptive,
+                       chunk_batches=args.adaptive_chunk_batches,
+                       slack=args.adaptive_slack,
+                       gap_target=args.adaptive_gap_target)
+
+    def report_samples(i, n_used):
+        print(f"adaptive[{args.adaptive}] id {i}: "
+              f"{n_used}/{args.N0 + args.N} samples")
+
+    def write_row(i, prediction, gap, seconds):
+        elapsed = str(datetime.timedelta(seconds=seconds))
         with open(args.outfile, "a") as f:
-            print(f"{i}\t{i}\t{prediction}\t{correct}\t{gap:.3}\t"
-                  f"{radius:.3}\t{elapsed}", file=f, flush=True)
+            print(f"{i}\t{i}\t{prediction}\t{int(prediction == i)}\t"
+                  f"{gap:.3}\t{radius_scale * gap:.3}\t{elapsed}", file=f,
+                  flush=True)
+
+    eligible = [i for i in identity_order(num_classes, args.skip, args.max,
+                                          args.chunks, args.num_chunk)
+                if i not in done]
+    if args.adaptive != "off" and args.adaptive_group > 1:
+        group = args.adaptive_group
+        for g0 in range(0, len(eligible), group):
+            ids = eligible[g0:g0 + group]
+            before = time()
+            results = smoothed.certify_adaptive_many(
+                [dataset[i] for i in ids], [x] * len(ids), ids, args.N0,
+                args.N, args.alpha,
+                [identity_generator(args.seed, i, device) for i in ids],
+                pad_to=group, **adaptive_kw)
+            # the TSV time column reports per-identity wall time; inside a
+            # group that is the group's time split evenly
+            per_id = (time() - before) / len(ids)
+            for i, (prediction, gap, n_used) in zip(ids, results):
+                report_samples(i, n_used)
+                write_row(i, prediction, gap, per_id)
+        return
+
+    for i in eligible:
+        z = dataset[i]
+        before = time()
+        # Cascade generator discipline: the fast pass draws from a DERIVED
+        # generator, so its outcome (the selection event) is independent of
+        # the native pass's noise; the native pass draws from exactly the
+        # generator a plain native run would use, so every row the cascade
+        # emits after a native pass equals that run's row.
+        gen_fast = identity_generator(
+            args.seed, i, device,
+            stream=None if smoothed_native is None else 1)
+
+        def run_certify(sm, gen):
+            if args.adaptive == "off":
+                return sm.certify(z, x, i, args.N0, args.N, args.alpha, gen)
+            prediction, gap, n_used = sm.certify_adaptive(
+                z, x, i, args.N0, args.N, args.alpha, gen,
+                engine=args.adaptive_engine, **adaptive_kw)
+            report_samples(i, n_used)
+            return prediction, gap
+
+        prediction, gap = run_certify(smoothed, gen_fast)
+        if smoothed_native is not None and prediction == i:
+            prediction, gap = run_certify(
+                smoothed_native, identity_generator(args.seed, i, device))
+        write_row(i, prediction, gap, time() - before)
 
 
 if __name__ == "__main__":

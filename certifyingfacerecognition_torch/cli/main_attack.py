@@ -38,7 +38,6 @@ _NOT_PORTED = {
     "coordinator_address": (None, "9 (parallel runs)"),
     "num_processes": (None, "9 (parallel runs)"),
     "process_id": (None, "9 (parallel runs)"),
-    "synthesis_resolution": (None, "11 (reduced resolution and cascade)"),
     "profile_dir": (None, "14 (utils/profiling.py)"),
 }
 
@@ -63,10 +62,15 @@ def get_latent_codes(data_dir: str, n: int = None) -> np.ndarray:
 
 def get_embs(args, pipeline: FacePipeline, lat_codes: np.ndarray
              ) -> np.ndarray:
-    """Load cached gallery embeddings, or compute and cache them."""
+    """Load cached gallery embeddings, or compute and cache them.
+    Reduced-resolution embeddings are not interchangeable with native
+    ones, so their default cache name says the synthesis resolution (an
+    explicit --embs-file is the user's responsibility)."""
     log = args.LOGGER
+    sr = (f"_sr{args.synthesis_resolution}"
+          if args.synthesis_resolution else "")
     embs_file = args.embs_file or osp.join(
-        args.data_dir, f"embs_{args.face_recog_method}.npz")
+        args.data_dir, f"embs_{args.face_recog_method}{sr}.npz")
     if args.load_embs:
         log.info(f"Loading embeddings from {embs_file}")
         embs = W.load_embeddings(embs_file)[: args.load_n_embs]
@@ -108,10 +112,10 @@ def main(argv=None) -> None:
                                          device=device)
     frm_params = W.load_frm_params(args.frm_weights, args.face_recog_method,
                                    device=device)
+    syn_res = args.synthesis_resolution or args.resolution
     pipeline = FacePipeline(gen_params, frm_params, dirs=region.dirs.t(),
                             frs_method=args.face_recog_method,
-                            resolution=args.resolution, dtype=dtype,
-                            device=device)
+                            resolution=syn_res, dtype=dtype, device=device)
     # a plain tensor, not an inference-mode one: the attack differentiates
     # against it
     gallery = torch.as_tensor(get_embs(args, pipeline, lat_codes),
@@ -121,10 +125,9 @@ def main(argv=None) -> None:
     # Without --num-chunk every chunk runs in turn, then the aggregation.
     chunks_to_run = ([args.num_chunk] if args.num_chunk is not None
                      else range(args.chunks))
-    dists_fn = make_dists_fn(args.face_recog_method, args.resolution, dtype)
+    dists_fn = make_dists_fn(args.face_recog_method, syn_res, dtype)
     attack_step = _make_attack_step(dists_fn, region, args)
-    predict_fn = make_predict_fn(args.face_recog_method, args.resolution,
-                                 dtype)
+    predict_fn = make_predict_fn(args.face_recog_method, syn_res, dtype)
     for num_chunk in chunks_to_run:
         log_file = eval_chunk(params, lat_codes, num_chunk, args,
                               region=region, dists_fn=dists_fn,

@@ -77,7 +77,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resolution", type=int, default=1024,
                         help="StyleGAN synthesis resolution")
     parser.add_argument("--synthesis-resolution", type=int, default=None,
-                        help="not ported yet")
+                        help="Truncate synthesis at this resolution while "
+                             "loading --resolution weights (the FRM sees a "
+                             "112^2 resize either way). Attack "
+                             "success/magnitudes then refer to the "
+                             "truncated pipeline; cached embeddings get "
+                             "their own default name, "
+                             "embs_<method>_sr<res>.npz")
     parser.add_argument("--dtype", type=str, default="fp32",
                         choices=["fp32", "bf16"],
                         help="Compute dtype of the pipeline")

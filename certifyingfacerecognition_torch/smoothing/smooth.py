@@ -1,5 +1,6 @@
-"""Randomized-smoothing certifier with a fixed Monte-Carlo budget (port of
-the fixed-N parts of certifyingfacerecognition_tpu/smoothing/smooth.py).
+"""Randomized-smoothing certifier (port of
+certifyingfacerecognition_tpu/smoothing/smooth.py): the fixed-N estimator
+and the early-stopping (adaptive) one.
 
 Each MC batch draws noise on the device, perturbs the attribute vector,
 runs the base classifier and adds its per-class counts into a counts
@@ -9,10 +10,13 @@ of a budget that is not a multiple of it counts only its first
 ``n_valid`` samples. N0 selection, the Clopper-Pearson bound and the
 pABar < 0.5 abstention follow the reference.
 
-Noise injection: ``certify``/``predict`` take optional precomputed noise
-arrays [n_batches, batch_size, noise_dim] (already scaled by sigma), used
-in place of the generator's draws, so that a test can feed the JAX
-package's noise (the two frameworks draw different random streams).
+Noise discipline: every estimator draws, from the identity's generator and
+in this order, the N0 batches, then the N batches one by one; the adaptive
+ones only stop drawing earlier. Noise injection: ``certify``, ``predict``
+and the adaptive estimators take optional precomputed noise arrays
+[n_batches, batch_size, noise_dim] (already scaled by sigma), used in
+place of the generator's draws, so that a test can feed the JAX package's
+noise (the two frameworks draw different random streams).
 """
 
 from __future__ import annotations
@@ -30,14 +34,26 @@ from ..utils.stats import binom_two_sided_pvalue, clopper_pearson_lower
 ABSTAIN = -1
 
 
-def identity_generator(seed: int, index: int, device) -> torch.Generator:
+def identity_generator(seed: int, index: int, device, stream: int = None
+                       ) -> torch.Generator:
     """The generator of identity ``index`` in a run seeded with ``seed``:
     streams of different identities are independent and each is
-    reproducible on its own (resume, job arrays)."""
-    state = np.random.SeedSequence([seed, index]).generate_state(2)
+    reproducible on its own (resume, job arrays). ``stream`` derives
+    another independent generator of the same identity (the cascade's fast
+    pass)."""
+    entropy = [seed, index] + ([] if stream is None else [stream])
+    state = np.random.SeedSequence(entropy).generate_state(2)
     gen = torch.Generator(device=resolve_device(device))
     gen.manual_seed(int(state[0]) << 32 | int(state[1]))
     return gen
+
+
+def batch_valid(num: int, batch_size: int) -> np.ndarray:
+    """Valid samples of each MC batch of a ``num``-sample budget: full
+    batches, the last one ragged."""
+    valid = np.full((math.ceil(num / batch_size),), batch_size, np.int64)
+    valid[-1] = num - (len(valid) - 1) * batch_size
+    return valid
 
 
 def _make_batch_fn(predict_fn: Callable, num_classes: int,
@@ -94,22 +110,36 @@ class Smooth:
         self._batch_fn = _make_batch_fn(
             predict_fn, num_classes, certificate, batch_size, noise_dim,
             self.device, with_params=params is not None)
+        # threshold tables of the device engine (adaptive_device.py), with
+        # their device copies, keyed by the full rule config
+        self._adaptive_tab_cache = {}
+
+    def _inputs(self, z, x):
+        """(z, x) as f32 tensors on the device."""
+        return (torch.as_tensor(np.array(z, np.float32), device=self.device),
+                torch.as_tensor(np.asarray(x, np.float32), device=self.device))
+
+    def _counts(self, z, x, valid, generator: torch.Generator,
+                noise=None) -> torch.Tensor:
+        """Per-class counts, on the device, of one MC batch per entry of
+        ``valid`` (its valid samples; a 0 entry is skipped and draws no
+        noise). ``noise``: optional injected noise, one batch per entry."""
+        counts = torch.zeros((self.num_classes,), dtype=torch.float32,
+                             device=self.device)
+        for i, n_valid in enumerate(valid):
+            if n_valid:
+                counts += self._batch_fn(
+                    self.params, z, x, self.sigma, generator, int(n_valid),
+                    None if noise is None else noise[i])
+        return counts
 
     def _sample_noise(self, z, x, num: int, generator: torch.Generator,
                       noise=None) -> np.ndarray:
         """Per-class counts from ``num`` noisy forwards. ``noise``: optional
         [ceil(num / batch_size), batch_size, noise_dim] injected noise."""
-        n_batches = math.ceil(num / self.batch_size)
-        z = torch.as_tensor(np.array(z, np.float32), device=self.device)
-        x = torch.as_tensor(np.asarray(x, np.float32), device=self.device)
-        counts = torch.zeros((self.num_classes,), dtype=torch.float32,
-                             device=self.device)
-        for i in range(n_batches):
-            n_valid = min(self.batch_size, num - i * self.batch_size)
-            counts += self._batch_fn(
-                self.params, z, x, self.sigma, generator, n_valid,
-                None if noise is None else noise[i])
-        return counts.cpu().numpy()
+        z, x = self._inputs(z, x)
+        return self._counts(z, x, batch_valid(num, self.batch_size),
+                            generator, noise).cpu().numpy()
 
     def certify(self, z, x, label: int, n0: int, n: int, alpha: float,
                 generator: torch.Generator, noise0=None, noise=None):
@@ -137,3 +167,122 @@ class Smooth:
         if binom_two_sided_pvalue(c1, c1 + c2, 0.5) > alpha:
             return ABSTAIN
         return int(top2[0])
+
+    def certify_adaptive(self, z, x, label: int, n0: int, n: int,
+                         alpha: float, generator: torch.Generator,
+                         mode: str = "guaranteed", chunk_batches: int = 8,
+                         slack: float = 0.1, gap_target=None,
+                         engine: str = "host", noise0=None, noise=None):
+        """Early-stopping certification. Returns (prediction, gap, n_used).
+
+        Draws the same noise as ``certify`` (the N0 batches, then the N
+        batches in order) and looks at the running success count every
+        ``chunk_batches`` batches; it stops when the outcome is settled:
+
+        ``mode="guaranteed"``: deterministic futility bounds. At m of N
+        samples with n_a successes, the full run's Clopper-Pearson bound
+        lies between CP(n_a, N) and CP(n_a + N - m, N). Above 0.5 at the
+        lower end the full run certifies (emit the lower end, a valid gap
+        never above the full run's, once it is within ``slack`` of the
+        upper end); below 0.5 at the upper end it abstains. Decisions equal
+        the fixed-N run's for the same noise; with slack 0 the gaps do too.
+        ``gap_target`` g0 also stops as soon as "certified at gap >= g0" is
+        settled either way.
+
+        ``mode="sequential"``: alpha-spending checkpoints (alpha/2 for the
+        last look, alpha/(2(K-1)) for each of the K-1 early ones): stops as
+        soon as the checkpoint's own bound CP(n_a, m, alpha_k) clears 0.5
+        (within ``slack`` of the best still reachable gap, or at
+        ``gap_target``) or its upper bound falls below 0.5. Decisions agree
+        with the fixed-N run only statistically; coverage holds at alpha.
+
+        N0 selection is unchanged in both. ``engine="host"`` reads n_a once
+        per checkpoint and evaluates the rules on the host;
+        ``engine="device"`` (adaptive_device.py) keeps n_a, m and the status
+        on the device, compares n_a with precomputed integer thresholds and
+        reads one status per checkpoint. Both return the same tuple except
+        in guaranteed mode with ``gap_target``, where the device engine may
+        stop later with a larger, still valid gap. ``noise0``/``noise``:
+        optional injected noise of the two phases."""
+        from ..utils.stats import clopper_pearson_upper
+
+        assert mode in ("guaranteed", "sequential"), mode
+        assert engine in ("host", "device"), engine
+        if engine == "device":
+            from .adaptive_device import certify_adaptive_device
+            return certify_adaptive_device(
+                self, z, x, label, n0, n, alpha, generator, mode=mode,
+                chunk_batches=chunk_batches, slack=slack,
+                gap_target=gap_target, noise0=noise0, noise=noise)
+        z, x = self._inputs(z, x)
+        bs = self.batch_size
+        counts0 = self._counts(z, x, batch_valid(n0, bs), generator, noise0)
+        c_a_hat = int(counts0.argmax())
+        if c_a_hat != int(label):
+            return c_a_hat, 0.0, n0
+
+        valid = batch_valid(n, bs)
+        n_chunks = math.ceil(len(valid) / chunk_batches)
+        alpha_early = alpha / (2 * (n_chunks - 1)) if n_chunks > 1 else alpha
+        alpha_final = alpha / 2 if n_chunks > 1 else alpha
+        n_a, m = 0, 0
+        for c in range(n_chunks):
+            sl = slice(c * chunk_batches, (c + 1) * chunk_batches)
+            counts = self._counts(z, x, valid[sl], generator,
+                                  None if noise is None else noise[sl])
+            n_a += int(counts[c_a_hat])                # one read
+            m += int(valid[sl].sum())
+            last = c == n_chunks - 1
+
+            if mode == "guaranteed":
+                lb_lo = clopper_pearson_lower(n_a, n, alpha)
+                lb_hi = clopper_pearson_lower(n_a + (n - m), n, alpha)
+                if lb_hi < 0.5:
+                    return ABSTAIN, 0.0, n0 + m       # full run must abstain
+                if lb_lo >= 0.5:                      # full run must certify
+                    gap_lo = self.certificate.compute_gap(lb_lo)
+                    gap_hi = self.certificate.compute_gap(lb_hi)
+                    if gap_target is not None and (gap_lo >= gap_target
+                                                   or gap_hi < gap_target):
+                        return c_a_hat, gap_lo, n0 + m
+                    if last or gap_lo >= (1.0 - slack) * gap_hi:
+                        return c_a_hat, gap_lo, n0 + m
+                if last:                              # unsettled: exact N run
+                    if lb_lo < 0.5:
+                        return ABSTAIN, 0.0, n0 + m
+            else:
+                a_k = alpha_final if last else alpha_early
+                lb_k = clopper_pearson_lower(n_a, m, a_k)
+                if clopper_pearson_upper(n_a, m, a_k) < 0.5:
+                    return ABSTAIN, 0.0, n0 + m
+                if lb_k >= 0.5:
+                    gap_k = self.certificate.compute_gap(lb_k)
+                    if gap_target is not None and gap_k >= gap_target:
+                        return c_a_hat, gap_k, n0 + m
+                    gap_best = self.certificate.compute_gap(
+                        clopper_pearson_lower(n_a + (n - m), n, alpha_final))
+                    if last or gap_k >= (1.0 - slack) * gap_best:
+                        return c_a_hat, gap_k, n0 + m
+                if last:
+                    return ABSTAIN, 0.0, n0 + m
+        raise AssertionError("unreachable")  # pragma: no cover
+
+    def certify_adaptive_many(self, zs, xs, labels, n0: int, n: int,
+                              alpha: float, generators,
+                              mode: str = "guaranteed",
+                              chunk_batches: int = 8, slack: float = 0.1,
+                              gap_target=None, pad_to: int = 0,
+                              noise0=None, noise=None):
+        """Grouped device engine: G identities, each with its own generator
+        (and optional injected noise, one array per identity) and its own
+        early exit, one result read for the group. Each identity's
+        (prediction, gap, n_used) equals ``certify_adaptive(...,
+        engine="device")``'s with the same generator. ``pad_to`` is the
+        JAX package's compile-shape bucket; eager PyTorch compiles nothing,
+        so it has no effect."""
+        assert mode in ("guaranteed", "sequential"), mode
+        from .adaptive_device import certify_adaptive_device_many
+        return certify_adaptive_device_many(
+            self, zs, xs, labels, n0, n, alpha, generators, mode=mode,
+            chunk_batches=chunk_batches, slack=slack,
+            gap_target=gap_target, pad_to=pad_to, noise0=noise0, noise=noise)

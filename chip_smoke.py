@@ -12,8 +12,9 @@ Runs straight through and raises (exit code != 0) on any failure:
    spill, every f32 one none;
 3. each kernel of the synthesis tail against its plain PyTorch version at
    the 1024^2 tail's shapes (B = 8), bf16 and f32: the four chain kernels
-   with and without the input affine, the five passes of the standalone
-   half-layers, the up layer also at CFR_TAIL_MIN_RES=128's first up layer
+   with and without the input affine (final_stats and final_apply also at
+   512^2 32 -> 32, where the cascade's fast pass runs them), the five
+   passes of the standalone half-layers, the up layer also at CFR_TAIL_MIN_RES=128's first up layer
    (64^2 -> 128^2, 256 -> 128 channels) and the conv layers at its
    widest shapes (128^2 128 -> 128, 256^2 64 -> 64), and the whole kernel
    chain against a plain chain;
@@ -25,6 +26,21 @@ Runs straight through and raises (exit code != 0) on any failure:
    and read just after (every chain kernel must have launched), then the
    same run on the plain bf16 path; images and embeddings are checked
    against f32;
+5b. adaptive certification and the reduced-resolution cascade on phase
+   5's data (CFR_TAIL=bc, batch 128, N0 = 128, sigma = 0.1): ``cfr-certify
+   --adaptive guaranteed`` (N = 1024, one batch per checkpoint, slack 0)
+   with the host engine, the device engine and the device engine in
+   groups of 4, each TSV equal to phase 5's row for row and every chain
+   kernel launched; ``--adaptive sequential`` (N = 4096, device engine)
+   with its samples used and seconds per identity, and the same
+   certifications through the device engine launching one checkpoint
+   ahead of its status reads (same results, its seconds beside); then a
+   512^2 gallery from the port's 512^2 bf16 pipeline,
+   ``--synthesis-resolution 512`` alone (its samples/s; the 512^2 block
+   alone in the tail: up_fused, final_stats and final_apply launch,
+   conv_fused does not) and with ``--cascade`` at 1024^2 (every
+   certified row equal to phase 5's; the fast pass launches the three,
+   the native pass all four chain kernels);
 6. the standalone tail 256^2 -> 1024^2 through the differentiable ops
    (upconv_blur_epilogue_bc -> conv_epilogue_bc -> upconv_blur_epilogue_bc
    -> conv_epilogue_rgb_bc): bf16 image against the plain references, the
@@ -45,6 +61,8 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -181,10 +199,16 @@ WIDE_CONV_LAYERS = [(name, "conv", h, c, c) for h, c in ((128, 128),
                                  "conv_rgb_apply")]
 
 
+# checked, not timed: the last layer of a 512^2 synthesis (the cascade's
+# fast pass), run by final_stats and final_apply at 32 -> 32
+FAST_PASS_LAYERS = [(name, "conv", 512, 32, 32)
+                    for name in ("final_stats", "final_apply")]
+
+
 def check_kernels(bc, gen):
     """Phase 3: every kernel against its plain version on the card."""
     worst = {}
-    wide = WIDE_UP_LAYERS + WIDE_CONV_LAYERS
+    wide = WIDE_UP_LAYERS + WIDE_CONV_LAYERS + FAST_PASS_LAYERS
     cases = [(L, aff) for L in LAYERS + wide
              if L[0] in CHAIN for aff in (False, True)] + \
         [(L, False) for L in STANDALONE_LAYERS + wide
@@ -602,30 +626,202 @@ def check_outputs(pipes, gen, w, embs_bc):
     assert cos["bc"] >= 0.99
 
 
-def certify_run(main, root, frm_path, out, tail):
-    """One cfr-certify run; returns (rows, samples, seconds summed over
-    the TSV's per-identity times)."""
+def row_seconds(row):
+    """Seconds of a TSV row's time column (h:mm:ss[.ffffff])."""
+    hms, _, frac = row[6].partition(".")
+    hh, mm, ss = (int(v) for v in hms.split(":"))
+    return hh * 3600 + mm * 60 + ss + float("0." + (frac or "0"))
+
+
+def certify_run(main, root, frm_path, out, tail, n=1024, extra=()):
+    """One cfr-certify run (its standard output echoed); returns (rows,
+    samples, seconds summed over the TSV's per-identity times, {identity:
+    samples used} from an adaptive run's lines). ``samples`` counts a
+    fixed-N run's: N0, plus N for an identity that passed selection."""
     os.environ["CFR_TAIL"] = tail
-    n0, n = 128, 1024
-    main(["--face-recog-model", "insightface", "--outfile", out,
-          "--sigma", "0.1", "--data-dir", root, "--resolution", "1024",
-          "--dtype", "bf16", "--batch-sz", "128", "--N0", str(n0),
-          "--N", str(n), "--gen-weights", "random:0",
-          "--frm-weights", frm_path, "--seed", "0"])
+    n0 = 128
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(["--face-recog-model", "insightface", "--outfile", out,
+              "--sigma", "0.1", "--data-dir", root, "--resolution", "1024",
+              "--dtype", "bf16", "--batch-sz", "128", "--N0", str(n0),
+              "--N", str(n), "--gen-weights", "random:0",
+              "--frm-weights", frm_path, "--seed", "0", *extra])
     torch.cuda.synchronize()
+    for line in buf.getvalue().splitlines():
+        log(line)
+    used = {int(m[1]): int(m[2]) for m in re.finditer(
+        r"adaptive\[\w+\] id (\d+): (\d+)/", buf.getvalue())}
     lines = open(out).read().strip().split("\n")
     assert lines[0] == "idx\tlabel\tpredict\tcorrect\tgap\tradius\ttime"
     rows = [line.split("\t") for line in lines[1:]]
     assert [int(r[0]) for r in rows] == [0, 1, 2, 3], rows
-    samples, secs = 0, 0.0
+    samples = 0
     for r in rows:
         pred = int(r[2])
         assert -1 <= pred < 4, r
         samples += n0 + (n if pred in (-1, int(r[1])) else 0)
-        hms, _, frac = r[6].partition(".")
-        hh, mm, ss = (int(v) for v in hms.split(":"))
-        secs += hh * 3600 + mm * 60 + ss + float("0." + (frac or "0"))
-    return rows, samples, secs
+    return rows, samples, sum(row_seconds(r) for r in rows), used
+
+
+def tsv_columns(rows):
+    """The idx, label, predict, correct, gap and radius columns."""
+    return [r[:6] for r in rows]
+
+
+def chain_launches(bc):
+    return {k: bc.LAUNCHES[k] for k in CHAIN}
+
+
+@contextlib.contextmanager
+def launches_by_smoother(bc):
+    """Chain-kernel launches of each Smooth's certify calls, one dict per
+    Smooth in the order of their first call (the cascade's fast pass,
+    then its native pass)."""
+    from certifyingfacerecognition_torch.smoothing.smooth import Smooth
+
+    certify, by_smoother = Smooth.certify, {}
+
+    def counted(self, *args, **kwargs):
+        before = chain_launches(bc)
+        out = certify(self, *args, **kwargs)
+        counts = by_smoother.setdefault(id(self), dict.fromkeys(CHAIN, 0))
+        for k in CHAIN:
+            counts[k] += bc.LAUNCHES[k] - before[k]
+        return out
+
+    Smooth.certify = counted
+    try:
+        yield by_smoother
+    finally:
+        Smooth.certify = certify
+
+
+def check_adaptive(main, bc, root, frm_path, w, embs, rows_bc, gpu):
+    """Phase 5b, adaptive certification through the chain kernels."""
+    from certifyingfacerecognition_torch.models.pipeline import FacePipeline
+    from certifyingfacerecognition_torch.ops.geometry import get_all_matrices
+    from certifyingfacerecognition_torch.smoothing.adaptive_device import \
+        certify_adaptive_device
+    from certifyingfacerecognition_torch.smoothing.certificate import \
+        L2Certificate
+    from certifyingfacerecognition_torch.smoothing.smooth import (
+        Smooth, identity_generator)
+    from certifyingfacerecognition_torch.utils import weights as W
+
+    out = os.path.join(root, "adaptive.tsv")
+    per_id = {}
+    for engine, flags in (
+            ("host", ["--adaptive-engine", "host"]),
+            ("device", ["--adaptive-engine", "device"]),
+            ("device, group 4", ["--adaptive-engine", "device",
+                                 "--adaptive-group", "4"])):
+        bc.reset_launches()
+        rows, _, secs, used = certify_run(
+            main, root, frm_path, out, "bc",
+            extra=["--adaptive", "guaranteed", "--adaptive-chunk-batches",
+                   "1", "--adaptive-slack", "0", *flags])
+        launches = chain_launches(bc)
+        log(f"adaptive guaranteed ({engine} engine): {rows}; samples used "
+            f"{used}; launches {launches}")
+        if tsv_columns(rows) != tsv_columns(rows_bc):
+            raise AssertionError(f"adaptive guaranteed ({engine}) at slack "
+                                 f"0 differs from the fixed-N rows")
+        if not all(launches.values()):
+            raise AssertionError(f"chain kernels not launched: {launches}")
+        per_id[engine] = secs / len(rows)
+    log("adaptive guaranteed N = 1024, slack 0, s/identity: " + ", ".join(
+        f"{k} engine {v:.3f}" for k, v in per_id.items()) + f" [{gpu}]")
+
+    bc.reset_launches()
+    n = 4096
+    rows, _, _, used = certify_run(
+        main, root, frm_path, out, "bc", n=n,
+        extra=["--adaptive", "sequential", "--adaptive-chunk-batches", "1",
+               "--adaptive-engine", "device"])
+    launches = chain_launches(bc)
+    if not all(launches.values()):
+        raise AssertionError(f"chain kernels not launched: {launches}")
+    for r in rows:
+        log(f"adaptive sequential N = {n} (device engine) id {r[0]}: "
+            f"{used[int(r[0])]}/{128 + n} samples, {row_seconds(r):.3f} s, "
+            f"predict {r[2]} gap {r[4]} [{gpu}]")
+
+    # the same certifications through the device engine with one
+    # checkpoint launched ahead of each status read
+    os.environ["CFR_TAIL"] = "bc"
+    pipe = FacePipeline(W.load_generator_params("random:0", resolution=1024),
+                        W.load_frm_params(frm_path),
+                        dirs=torch.as_tensor(get_all_matrices().dirs.T),
+                        resolution=1024, dtype=torch.bfloat16,
+                        gallery=torch.as_tensor(embs))
+    fn, params = pipe.predict_fn_with_params()
+    smooth = Smooth(fn, 4, np.full((5,), 0.1, np.float32), L2Certificate(),
+                    noise_dim=5, batch_size=128, params=params)
+    for r in rows:
+        i = int(r[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred, gap, n_used = certify_adaptive_device(
+            smooth, w[i], np.zeros(5, np.float32), i, 128, n, 0.001,
+            identity_generator(0, i, "cuda"), "sequential", 1, 0.1, None,
+            lookahead=1)
+        secs = time.perf_counter() - t0
+        log(f"adaptive sequential N = {n}, device engine one checkpoint "
+            f"ahead, id {i}: {n_used}/{128 + n} samples, {secs:.3f} s "
+            f"(status read each checkpoint: {row_seconds(r):.3f} s) [{gpu}]")
+        if (str(pred), f"{gap:.3}", n_used) != (r[2], r[4], used[i]):
+            raise AssertionError("launching ahead changed the result")
+
+
+def check_cascade(main, bc, root, frm_path, w, rows_bc, rate_bc, gpu):
+    """Phase 5b, the reduced-resolution fast path and the cascade."""
+    from certifyingfacerecognition_torch.models.pipeline import FacePipeline
+    from certifyingfacerecognition_torch.ops.geometry import get_all_matrices
+    from certifyingfacerecognition_torch.utils import weights as W
+
+    os.environ["CFR_TAIL"] = "bc"
+    pipe = FacePipeline(W.load_generator_params("random:0", resolution=1024),
+                        W.load_frm_params(frm_path),
+                        dirs=torch.as_tensor(get_all_matrices().dirs.T),
+                        resolution=512, dtype=torch.bfloat16)
+    embs = pipe.lat2embs(w).float().cpu().numpy()
+    assert embs.shape == (4, 512) and np.isfinite(embs).all()
+    np.savez(os.path.join(root, "embs_insightface_sr512.npz"), embs=embs)
+    del pipe
+
+    out = os.path.join(root, "sr512.tsv")
+    bc.reset_launches()
+    rows, samples, secs, _ = certify_run(
+        main, root, frm_path, out, "bc",
+        extra=["--synthesis-resolution", "512"])
+    launches = chain_launches(bc)
+    log(f"certify --synthesis-resolution 512: {rows}; launches {launches}")
+    if not all(launches[k] for k in ("up_fused", "final_stats",
+                                     "final_apply")) or launches["conv_fused"]:
+        raise AssertionError(f"the 512^2 tail is one up layer, then "
+                             f"final_stats and final_apply: {launches}")
+    log(f"certify bf16 chain tail: --synthesis-resolution 512 {samples} "
+        f"samples in {secs:.3f} s = {samples / secs:.1f} samples/s, "
+        f"1024^2 (phase 5) {rate_bc:.1f} samples/s [{gpu}]")
+
+    with launches_by_smoother(bc) as by_smoother:
+        rows, _, _, _ = certify_run(
+            main, root, frm_path, out, "bc",
+            extra=["--synthesis-resolution", "512", "--cascade"])
+    passes = list(by_smoother.values())
+    log(f"certify --synthesis-resolution 512 --cascade: {rows}; launches "
+        f"of the fast pass {passes[0]}, of the native pass "
+        f"{passes[1:] or 'none'}")
+    certified = [r[:6] for r in rows if r[3] == "1"]
+    if not certified or certified != [r[:6] for r in rows_bc
+                                      if r[0] in {c[0] for c in certified}]:
+        raise AssertionError("the cascade's certified rows differ from the "
+                             "native run's")
+    fast, native = passes
+    if not all(fast[k] for k in ("up_fused", "final_stats", "final_apply")) \
+            or not all(native.values()):
+        raise AssertionError(f"chain kernels not launched: {passes}")
 
 
 ATTACK_IDS = 48          # identities of the attack run = its batch
@@ -870,8 +1066,8 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         bc.reset_launches()
-        rows, samples, secs = certify_run(certify.main, root, frm_path,
-                                          os.path.join(root, "bc.tsv"), "bc")
+        rows, samples, secs, _ = certify_run(
+            certify.main, root, frm_path, os.path.join(root, "bc.tsv"), "bc")
         launches = dict(bc.LAUNCHES)
         log(f"certify path (CFR_TAIL=bc): {rows}")
         log(f"certify path launches: {launches}")
@@ -883,12 +1079,18 @@ def main() -> int:
             f"{secs:.3f} s = {samples / secs:.1f} samples/s [{gpu}]")
 
         bc.reset_launches()
-        rows_p, samples_p, secs_p = certify_run(
+        rows_p, samples_p, secs_p, _ = certify_run(
             certify.main, root, frm_path, os.path.join(root, "plain.tsv"), "")
         assert all(v == 0 for v in bc.LAUNCHES.values()), bc.LAUNCHES
         log(f"certify path (plain bf16): {rows_p}")
         log(f"certify path bf16 plain ops: {samples_p} samples in "
             f"{secs_p:.3f} s = {samples_p / secs_p:.1f} samples/s [{gpu}]")
+        torch.cuda.empty_cache()
+
+        check_adaptive(certify.main, bc, root, frm_path, w, embs, rows, gpu)
+        torch.cuda.empty_cache()
+        check_cascade(certify.main, bc, root, frm_path, w, rows,
+                      samples / secs, gpu)
         torch.cuda.empty_cache()
 
         standalone = check_standalone_tail(bc, gen)

@@ -15,6 +15,9 @@ every embedding to NaN).
 * cfr-attack-torch --device cpu on 4 identities in 2 chunks, then
   --eval-files: the JAX CLI's artifact files and schema
   (tests/test_cli.py:61-75), feasible deltas, and the results.txt fields.
+* --synthesis-resolution 8: the gallery is computed at 8^2 (equal to the
+  JAX pipeline's at 8^2, rtol 1e-4), cached under embs_<method>_sr8.npz
+  and read back from that name by --load-embs.
 * The flags of unported parts exit with a message naming their ROADMAP
   item.
 
@@ -32,6 +35,7 @@ import torch
 
 from certifyingfacerecognition_tpu.eval import chunk_runner as jcr
 from certifyingfacerecognition_tpu.models import iresnet as jir
+from certifyingfacerecognition_tpu.models import pipeline as jpl
 from certifyingfacerecognition_tpu.models import stylegan as jsg
 from certifyingfacerecognition_tpu.utils import weights as jw
 from certifyingfacerecognition_torch.cli import main_attack as tmain
@@ -131,10 +135,34 @@ def test_attack_chunks_and_eval_files(data_dir, tmp_path, monkeypatch):
         osp.isfile(osp.join(out, "figs", "acc_vs_pert.png"))
 
 
+def test_synthesis_resolution_gallery_name(data_dir, tmp_path, monkeypatch):
+    d = tmp_path / "data"
+    d.mkdir()
+    for name in ("w.npy", "frm.npz"):
+        (d / name).write_bytes(open(osp.join(data_dir, name), "rb").read())
+    monkeypatch.chdir(tmp_path)
+    common = _common(str(d)) + ["--synthesis-resolution", "8", "--iters", "1"]
+    common[common.index("--frm-weights") + 1] = str(d / "frm.npz")
+    tmain.main(["--output-dir", "sr", "--num-chunk", "0"] + common)
+    assert sorted(os.listdir(d)) == ["embs_insightface_sr8.npz", "frm.npz",
+                                     "w.npy"]
+    embs = np.load(d / "embs_insightface_sr8.npz")["embs"]
+    jpipe = jpl.FacePipeline(jsg.random_params(RES, seed=0), _frm(),
+                             dirs=jnp.asarray(tg.get_all_matrices().dirs.T),
+                             resolution=8)
+    w = np.load(d / "w.npy")
+    np.testing.assert_allclose(embs, np.asarray(jpipe.lat2embs(
+        jnp.asarray(w))), rtol=1e-4, atol=1e-4 * np.abs(embs).max())
+    tmain.main(["--output-dir", "sr", "--num-chunk", "1", "--load-embs"]
+               + common)
+    assert sorted(os.listdir(osp.join("exp_results", "sr", "logs"))) == \
+        ["results_chunk0of2.txt", "results_chunk1of2.txt"]
+
+
 @pytest.mark.parametrize("flag", [
     ["--attack-type", "apgd-ce"], ["--attack-type", "autoattack"],
     ["--run-checks"], ["--mesh"], ["--multihost"],
-    ["--synthesis-resolution", "8"], ["--face-recog-method", "facenet"],
+    ["--face-recog-method", "facenet"],
     ["--profile-dir", "trace"], ["--n-target-classes", "3"]])
 def test_unported_flags_raise(tmp_path, monkeypatch, flag):
     monkeypatch.chdir(tmp_path)

@@ -2,10 +2,15 @@
 32^2, random generator weights, random He-scaled ArcFace weights saved as
 .npz (the default random:0 ArcFace weights drive every embedding to NaN,
 where the nearest identity is arbitrary), a gallery of four identities
-computed by the JAX pipeline, sigma small enough that every noisy sample keeps its label (so
-the counts, and hence every decision, do not depend on the two
-frameworks' different noise streams). The TSV header and the idx, label,
-predict, correct, gap and radius columns must match row for row.
+computed by the JAX pipeline at 32^2 and one at 16^2 (the reduced-
+resolution gallery), sigma small enough that every noisy sample keeps its
+label (so the counts, and hence every decision and every early stop, do
+not depend on the two frameworks' different noise streams). The TSV
+header and the idx, label, predict, correct, gap and radius columns must
+match row for row: fixed N, --adaptive in both modes and with every
+engine, and --synthesis-resolution 16 --cascade, whose certified rows must
+also equal a plain native run's. The adaptive runs' samples-used lines
+must match too.
 
 Torch runs one intra-op thread per process: the suite runs in several
 pytest-xdist workers that share the machine's cores."""
@@ -24,7 +29,7 @@ from certifyingfacerecognition_tpu.ops import geometry as G
 from certifyingfacerecognition_tpu.utils import weights as W
 from certifyingfacerecognition_torch.cli import certify as tcli
 
-RES = 32
+RES, SR = 32, 16
 torch.set_num_threads(1)
 
 
@@ -38,12 +43,14 @@ def data_dir(tmp_path_factory):
         iresnet.random_torch_style_state_dict("iresnet18", seed=0,
                                               realistic=True), "iresnet18")
     W.save_params(osp.join(d, "frm.npz"), frm)
-    pipe = FacePipeline(W.load_generator_params("random", resolution=RES),
-                        frm,
-                        dirs=jnp.asarray(G.get_all_matrices().dirs.T),
-                        resolution=RES)
-    np.savez(osp.join(d, "embs_insightface.npz"),
-             embs=np.asarray(pipe.lat2embs(jnp.asarray(ws))))
+    gen = W.load_generator_params("random", resolution=RES)
+    for res, name in ((RES, "embs_insightface.npz"),
+                      (SR, f"embs_insightface_sr{SR}.npz")):
+        pipe = FacePipeline(gen, frm,
+                            dirs=jnp.asarray(G.get_all_matrices().dirs.T),
+                            resolution=res)
+        np.savez(osp.join(d, name),
+                 embs=np.asarray(pipe.lat2embs(jnp.asarray(ws))))
     return str(d)
 
 
@@ -99,14 +106,105 @@ def test_identity_order_matches_jax_striding():
         tcli.identity_order(10, 1, -1, 2, 2)
 
 
+def _small(data_dir, out, *extra):
+    """Identities 0 and 1 with a budget of five batches of two (N0 2, N 8)
+    at alpha 0.1: sequential mode's checkpoint bound clears 0.5 at 6 of 8
+    samples, where a gap target of 0.01 stops it early."""
+    args = _args(data_dir, out, "--max", "3", *extra)
+    for flag, value in (("--N0", "2"), ("--N", "8"), ("--batch-sz", "2")):
+        args[args.index(flag) + 1] = value
+    return args + ["--alpha", "0.1"]
+
+
+def _run(cli, argv, capsys):
+    """(TSV header, rows, the adaptive samples-used lines) of one run."""
+    capsys.readouterr()
+    cli.main(argv)
+    lines = [line for line in capsys.readouterr().out.split("\n")
+             if line.startswith("adaptive[")]
+    return (*_rows(argv[argv.index("--outfile") + 1]), lines)
+
+
+ADAPTIVE = {"guaranteed": ["--adaptive", "guaranteed",
+                           "--adaptive-chunk-batches", "1"],
+            "sequential": ["--adaptive", "sequential",
+                           "--adaptive-chunk-batches", "1",
+                           "--adaptive-gap-target", "0.01"]}
+_JAX_RUNS = {}
+
+
+def _jax_run(key, data_dir, tmp_path, capsys, *flags):
+    """The JAX CLI's run of ``flags``, once per module."""
+    if key not in _JAX_RUNS:
+        _JAX_RUNS[key] = _run(jcli, _small(data_dir, str(tmp_path / "j.tsv"),
+                                           *flags), capsys)
+    return _JAX_RUNS[key]
+
+
+@pytest.mark.parametrize("mode,engine", [
+    ("guaranteed", ["--adaptive-engine", "host"]),
+    ("guaranteed", ["--adaptive-engine", "device"]),
+    ("guaranteed", ["--adaptive-engine", "device", "--adaptive-group", "2"]),
+    ("sequential", ["--adaptive-engine", "host"]),
+    ("sequential", ["--adaptive-engine", "device", "--adaptive-group", "2"])],
+    ids=["guaranteed-host", "guaranteed-device", "guaranteed-group2",
+         "sequential-host", "sequential-group2"])
+def test_adaptive_tsv_matches_jax_cli(data_dir, tmp_path, capsys, mode,
+                                      engine):
+    """Against the JAX CLI's host engine (which its own tests hold equal to
+    its device engine and groups on these rules)."""
+    want = _jax_run(mode, data_dir, tmp_path, capsys, *ADAPTIVE[mode])
+    got = _run(tcli, _small(data_dir, str(tmp_path / "t.tsv"),
+                            *ADAPTIVE[mode], *engine, "--device", "cpu"),
+               capsys)
+    assert got == want
+    head, rows, used = got
+    assert head == tcli.TSV_HEADER and [r[0] for r in rows] == ["0", "1"]
+    assert all(r[3] == "1" for r in rows), rows          # all certified
+    assert used == [f"adaptive[{mode}] id {i}: "
+                    f"{8 if mode == 'sequential' else 10}/10 samples"
+                    for i in (0, 1)]
+
+
+def test_cascade_matches_jax_cli_and_native_rows(data_dir, tmp_path,
+                                                 capsys):
+    """--synthesis-resolution 16 --cascade at --resolution 32, fixed N:
+    the JAX CLI's rows, and every certified row equal to the plain native
+    run's (the native pass draws exactly the native run's noise)."""
+    flags = ["--synthesis-resolution", str(SR), "--cascade"]
+    want = _jax_run("cascade", data_dir, tmp_path, capsys, *flags)
+    got = _run(tcli, _small(data_dir, str(tmp_path / "t.tsv"), *flags,
+                            "--device", "cpu"), capsys)
+    assert got == want
+    _, native, _ = _run(tcli, _small(data_dir, str(tmp_path / "n.tsv"),
+                                     "--device", "cpu"), capsys)
+    certified = [r for r in got[1] if r[3] == "1"]
+    assert certified and certified == [r for r in native if r[3] == "1"]
+
+
+@pytest.mark.parametrize("cli", [jcli, tcli], ids=["jax", "torch"])
+@pytest.mark.parametrize("flags", [
+    ["--adaptive", "guaranteed", "--adaptive-group", "2"],
+    ["--adaptive", "sequential", "--adaptive-group", "2",
+     "--adaptive-engine", "device", "--synthesis-resolution", str(SR),
+     "--cascade"],
+    ["--cascade"],
+    ["--cascade", "--synthesis-resolution", str(RES), "--embs-file",
+     "{native}"]],
+    ids=["group-host", "group-cascade", "cascade-native",
+         "cascade-not-lower"])
+def test_usage_errors_raise(data_dir, tmp_path, cli, flags):
+    flags = [f.format(native=osp.join(data_dir, "embs_insightface.npz"))
+             for f in flags]
+    extra = ["--device", "cpu"] if cli is tcli else []
+    with pytest.raises(SystemExit, match="--"):
+        cli.main(_small(data_dir, str(tmp_path / "x.tsv"), *flags, *extra))
+
+
 @pytest.mark.parametrize("flag", [
-    ["--adaptive", "guaranteed"], ["--adaptive-group", "4"],
-    ["--adaptive-engine", "device"], ["--adaptive-chunk-batches", "2"],
-    ["--adaptive-slack", "0.2"], ["--adaptive-gap-target", "1.0"],
     ["--mesh"], ["--mesh-id", "2"], ["--multihost"],
     ["--coordinator-address", "localhost:1"], ["--num-processes", "2"],
-    ["--process-id", "1"], ["--cascade"], ["--synthesis-resolution", "16"],
-    ["--native-embs-file", "x.npz"]])
+    ["--process-id", "1"]])
 def test_unported_flags_raise(tmp_path, flag):
     with pytest.raises(SystemExit, match="ROADMAP"):
         tcli.main(_args(str(tmp_path), str(tmp_path / "x.tsv"), *flag))

@@ -186,6 +186,29 @@ def test_conv_kernels_match_plain_ragged(gen, dtype, c, b):
                for n in names)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("apply_aff", [False, True])
+def test_final_kernels_match_plain_at_512(gen, dtype, apply_aff):
+    """final_stats and final_apply at 512^2 32 -> 32, the last layer of a
+    512^2 synthesis (the cascade's fast pass)."""
+    h, c, b = 512, 32, 8
+    x = _randn((h, h, c, b), gen).to(dtype)
+    aff = torch.stack([_randn((c, b), gen, 0.3) + 1, _randn((c, b), gen)])
+    k, nb = _randn((3, 3, c, c), gen, (2.0 / (9 * c)) ** 0.5), \
+        _randn((h, h, c), gen, 0.1)
+    coefs = torch.stack([_randn((c, b), gen, 0.3) + 1, _randn((c, b), gen)])
+    w_rgb, b_rgb = _randn((c, 3), gen, c ** -0.5), _randn((3,), gen)
+    before = dict(bc.LAUNCHES)
+    _sums_close(bc.final_stats(x, k, nb, aff, apply_aff=apply_aff),
+                bc.final_stats_ref(x, k, nb, aff, apply_aff=apply_aff))
+    _close(bc.final_apply(x, k, nb, aff, coefs, w_rgb, b_rgb,
+                          apply_aff=apply_aff),
+           bc.final_apply_ref(x, k, nb, aff, coefs, w_rgb, b_rgb,
+                              apply_aff=apply_aff), TOL[dtype])
+    assert all(bc.LAUNCHES[n] == before[n] + 1
+               for n in ("final_stats", "final_apply"))
+
+
 @pytest.mark.parametrize("h,ci,co", [(16, 32, 16), (5, 64, 32)])
 def test_kernels_are_deterministic(gen, h, ci, co):
     """The fixed-point sums do not depend on the order of the atomic adds,
