@@ -14,16 +14,16 @@ m and the status are int32 tensors there, and the status comes from
 comparing n_a with the thresholds, which sit on the device too. The host
 reads one status per checkpoint to decide whether to launch the next one
 (eager PyTorch has no device-side while loop), and the row
-(c_a_hat, n_a, m, k_stop, status) once at the end. With ``lookahead`` L
-the host launches up to L checkpoints past the one whose status it waits
-for: the device keeps computing while the host waits, and the counts of a
-checkpoint launched after a stop are discarded on the device, so the
-result is the same. The emitted gap is computed on the host from that row
-with the host engine's scalar arithmetic, so the two engines agree
-exactly wherever the rules are exactly monotone (the builder checks this,
-``exact``): the one exception is guaranteed mode with ``gap_target``,
-whose "provably below target" branch decreases in n_a; there the device
-engine stops no earlier and emits a gap at least as large, still valid.
+(c_a_hat, n_a, m, k_stop, status) once at the end. (Launching the next
+checkpoint before reading the status, and discarding its counts after a
+stop, measured slower on an H100: the batch wasted at each stop costs
+more than the waits it saves; PERF.md, PR 6.) The emitted gap is computed
+on the host from the row with the host engine's scalar arithmetic, so the
+two engines agree exactly wherever the rules are exactly monotone (the
+builder checks this, ``exact``): the one exception is guaranteed mode
+with ``gap_target``, whose "provably below target" branch decreases in
+n_a; there the device engine stops no earlier and emits a gap at least as
+large, still valid.
 
 Unlike the JAX program, batches that only pad the last checkpoint are not
 run: they draw no noise and count nothing, so ``n_used`` is the same.
@@ -187,36 +187,14 @@ def build_thresholds(mode: str, n: int, valid: np.ndarray,
 RUNNING, EMIT, ABSTAIN_STATUS, SELECTION_FAIL = 0, 1, 2, 3
 
 
-def _snapshot(status: torch.Tensor):
-    """Start copying ``status`` to the host without waiting for it: a
-    pinned host tensor and the CUDA event after the copy (None on the
-    CPU, where the copy is done at once)."""
-    if status.device.type != "cuda":
-        return status.clone(), None
-    host = torch.empty((), dtype=status.dtype, pin_memory=True)
-    host.copy_(status, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
-def _read(snapshot) -> int:
-    """Wait for a snapshot's copy (and nothing launched after it)."""
-    host, event = snapshot
-    if event is not None:
-        event.synchronize()
-    return int(host)
-
-
 def _run_core(smooth, z, x, label: int, generator, valid0, valid,
               chunk_batches: int, n_chunks: int, t_emit, t_abst,
-              noise0=None, noise=None, lookahead: int = 0) -> torch.Tensor:
+              noise0=None, noise=None) -> torch.Tensor:
     """One identity: N0 selection, then the checkpoints, each adding its
     batches' counts to n_a on the device and comparing n_a with the
-    thresholds. Before launching checkpoint c the host reads the status
-    after checkpoint c - 1 - lookahead (after selection for c = lookahead);
-    an update launched after a stop changes nothing. Returns the int32
-    row (c_a_hat, n_a, m, k_stop, status), still on the device."""
+    thresholds; before each checkpoint the host reads the status. Returns
+    the int32 row (c_a_hat, n_a, m, k_stop, status), still on the
+    device."""
     dev = smooth.device
 
     def i32(v):                       # a fill, not a copy from the host
@@ -226,24 +204,17 @@ def _run_core(smooth, z, x, label: int, generator, valid0, valid,
     counts0 = smooth._counts(z, x, valid0, generator, noise0)
     c_a_hat = counts0.argmax().to(torch.int32)
     status = torch.where(c_a_hat == int(label), running, i32(SELECTION_FAIL))
-    n_a, m, k = i32(0), i32(0), i32(0)
-    snaps = [_snapshot(status)]       # snaps[j]: status after checkpoint j-1
-    for c in range(n_chunks):
-        j = c - lookahead
-        if j >= 0 and _read(snaps[j]) != RUNNING:
-            break
-        sl = slice(c * chunk_batches, (c + 1) * chunk_batches)
+    n_a, m, k = i32(0), i32(0), 0
+    while k < n_chunks and int(status) == RUNNING:     # one read
+        sl = slice(k * chunk_batches, (k + 1) * chunk_batches)
         counts = smooth._counts(z, x, valid[sl], generator,
                                 None if noise is None else noise[sl])
-        run = (status == RUNNING).to(torch.int32)
-        n_a = n_a + run * counts[c_a_hat].to(torch.int32)
-        m = m + run * int(valid[sl].sum())
-        k = k + run
-        new = torch.where(n_a <= t_abst[c], abstain,
-                          torch.where(n_a >= t_emit[c], emit, running))
-        status = torch.where(run.bool(), new, status)
-        snaps.append(_snapshot(status))
-    return torch.stack([c_a_hat, n_a, m, k - 1, status])
+        n_a = n_a + counts[c_a_hat].to(torch.int32)
+        m = m + int(valid[sl].sum())
+        status = torch.where(n_a <= t_abst[k], abstain,
+                             torch.where(n_a >= t_emit[k], emit, running))
+        k += 1
+    return torch.stack([c_a_hat, n_a, m, i32(k - 1), status])
 
 
 def _loop_shapes(smooth, n0: int, n: int, chunk_batches: int):
@@ -300,7 +271,7 @@ def certify_adaptive_device_many(smooth, zs, xs, labels, n0: int, n: int,
                                  alpha: float, generators, mode: str,
                                  chunk_batches: int, slack: float,
                                  gap_target, pad_to: int = 0, noise0=None,
-                                 noise=None, lookahead: int = 0):
+                                 noise=None):
     """Certify G identities one after another, each with its own generator
     (and optional injected noise, ``noise0[i]``/``noise[i]``) and its own
     early exit, with one read of the G result rows. Each identity's result
@@ -320,7 +291,7 @@ def certify_adaptive_device_many(smooth, zs, xs, labels, n0: int, n: int,
             smooth, z, x, labels[i], generators[i], valid0, valid,
             chunk_batches, n_chunks, t_emit, t_abst,
             None if noise0 is None else noise0[i],
-            None if noise is None else noise[i], lookahead))
+            None if noise is None else noise[i]))
     rows = torch.stack(rows).cpu().numpy()          # one read for G ids
     return [_result_from_row(smooth, tab, mode, n0, n, n_chunks, alpha, row)
             for row in rows]
@@ -329,12 +300,11 @@ def certify_adaptive_device_many(smooth, zs, xs, labels, n0: int, n: int,
 def certify_adaptive_device(smooth, z, x, label: int, n0: int, n: int,
                             alpha: float, generator, mode: str,
                             chunk_batches: int, slack: float, gap_target,
-                            noise0=None, noise=None, lookahead: int = 0):
+                            noise0=None, noise=None):
     """Engine="device" backend of Smooth.certify_adaptive: the same noise
     as the host engine, the stopping rules as thresholds on the device,
     the host engine's (prediction, gap, n_used) rebuilt from the row."""
     return certify_adaptive_device_many(
         smooth, [z], [x], [label], n0, n, alpha, [generator], mode,
         chunk_batches, slack, gap_target, noise0=None if noise0 is None
-        else [noise0], noise=None if noise is None else [noise],
-        lookahead=lookahead)[0]
+        else [noise0], noise=None if noise is None else [noise])[0]
