@@ -280,10 +280,11 @@ def certify_adaptive_device_many(smooth, zs, xs, labels, n0: int, n: int,
     size. Returns a list of G (prediction, gap, n_used) tuples."""
     g = len(labels)
     assert g >= 1 and len(zs) == len(xs) == len(generators) == g
-    _, _, n_chunks, _, valid0, valid = _loop_shapes(smooth, n0, n,
-                                                    chunk_batches)
+    _, n_batches, n_chunks, _, valid0, valid = _loop_shapes(
+        smooth, n0, n, chunk_batches)
     tab, t_emit, t_abst = _get_tab(smooth, mode, n, valid, chunk_batches,
                                    alpha, slack, gap_target)
+    valid = valid[:n_batches]          # the padding batches are not run
     rows = []
     for i in range(g):
         z, x = smooth._inputs(zs[i], xs[i])

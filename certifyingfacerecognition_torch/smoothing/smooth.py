@@ -122,15 +122,14 @@ class Smooth:
     def _counts(self, z, x, valid, generator: torch.Generator,
                 noise=None) -> torch.Tensor:
         """Per-class counts, on the device, of one MC batch per entry of
-        ``valid`` (its valid samples; a 0 entry is skipped and draws no
-        noise). ``noise``: optional injected noise, one batch per entry."""
+        ``valid`` (its valid samples). ``noise``: optional injected noise,
+        one batch per entry."""
         counts = torch.zeros((self.num_classes,), dtype=torch.float32,
                              device=self.device)
         for i, n_valid in enumerate(valid):
-            if n_valid:
-                counts += self._batch_fn(
-                    self.params, z, x, self.sigma, generator, int(n_valid),
-                    None if noise is None else noise[i])
+            counts += self._batch_fn(
+                self.params, z, x, self.sigma, generator, int(n_valid),
+                None if noise is None else noise[i])
         return counts
 
     def _sample_noise(self, z, x, num: int, generator: torch.Generator,

@@ -14,10 +14,10 @@ Runs straight through and raises (exit code != 0) on any failure:
    the 1024^2 tail's shapes (B = 8), bf16 and f32: the four chain kernels
    with and without the input affine (final_stats and final_apply also at
    512^2 32 -> 32, where the cascade's fast pass runs them), the five
-   passes of the standalone half-layers, the up layer also at CFR_TAIL_MIN_RES=128's first up layer
-   (64^2 -> 128^2, 256 -> 128 channels) and the conv layers at its
-   widest shapes (128^2 128 -> 128, 256^2 64 -> 64), and the whole kernel
-   chain against a plain chain;
+   passes of the standalone half-layers, the up layer also at
+   CFR_TAIL_MIN_RES=128's first up layer (64^2 -> 128^2, 256 -> 128
+   channels) and the conv layers at its widest shapes (128^2 128 -> 128,
+   256^2 64 -> 64), and the whole kernel chain against a plain chain;
 4. each kernel's time at B = 128 (CUDA events, median of 5) beside its
    plain version's time, its roofline bound and the time of cuDNN's
    convolution of the same layer (the library yardstick);
@@ -32,12 +32,12 @@ Runs straight through and raises (exit code != 0) on any failure:
    with the host engine, the device engine and the device engine in
    groups of 4, each TSV equal to phase 5's row for row and every chain
    kernel launched; ``--adaptive sequential`` (N = 4096, device engine)
-   with its samples used and seconds per identity; then a 512^2 gallery from the port's 512^2 bf16 pipeline,
-   ``--synthesis-resolution 512`` alone (its samples/s; the 512^2 block
-   alone in the tail: up_fused, final_stats and final_apply launch,
-   conv_fused does not) and with ``--cascade`` at 1024^2 (every
-   certified row equal to phase 5's; the fast pass launches the three,
-   the native pass all four chain kernels);
+   with its samples used and seconds per identity; then a 512^2 gallery
+   from the port's 512^2 bf16 pipeline, ``--synthesis-resolution 512``
+   alone (its samples/s; the 512^2 block alone in the tail: up_fused,
+   final_stats and final_apply launch, conv_fused does not) and with
+   ``--cascade`` at 1024^2 (every certified row equal to phase 5's; the
+   fast pass launches the three, the native pass all four chain kernels);
 6. the standalone tail 256^2 -> 1024^2 through the differentiable ops
    (upconv_blur_epilogue_bc -> conv_epilogue_bc -> upconv_blur_epilogue_bc
    -> conv_epilogue_rgb_bc): bf16 image against the plain references, the
@@ -774,9 +774,9 @@ def check_cascade(main, bc, root, frm_path, w, rows_bc, rate_bc, gpu):
     log(f"certify --synthesis-resolution 512 --cascade: {rows}; launches "
         f"of the fast pass {passes[0]}, of the native pass "
         f"{passes[1:] or 'none'}")
-    certified = [r[:6] for r in rows if r[3] == "1"]
-    if not certified or certified != [r[:6] for r in rows_bc
-                                      if r[0] in {c[0] for c in certified}]:
+    certified = tsv_columns(r for r in rows if r[3] == "1")
+    if not certified or certified != tsv_columns(
+            r for r in rows_bc if r[0] in {c[0] for c in certified}):
         raise AssertionError("the cascade's certified rows differ from the "
                              "native run's")
     fast, native = passes
