@@ -17,13 +17,13 @@ reads one status per checkpoint to decide whether to launch the next one
 (c_a_hat, n_a, m, k_stop, status) once at the end. (Launching the next
 checkpoint before reading the status, and discarding its counts after a
 stop, measured slower on an H100: the batch wasted at each stop costs
-more than the waits it saves; PERF.md, PR 6.) The emitted gap is computed
+more than the waits it saves; PERF.md §6.) The emitted gap is computed
 on the host from the row with the host engine's scalar arithmetic, so the
-two engines agree exactly wherever the rules are exactly monotone (the
-builder checks this, ``exact``): the one exception is guaranteed mode
-with ``gap_target``, whose "provably below target" branch decreases in
-n_a; there the device engine stops no earlier and emits a gap at least as
-large, still valid.
+two engines agree exactly wherever the rules are exactly monotone
+(build_thresholds checks this, ``exact``): the one exception is
+guaranteed mode with ``gap_target``, whose "provably below target" branch
+decreases in n_a; there the device engine stops no earlier and emits a
+gap at least as large, still valid.
 
 Unlike the JAX program, batches that only pad the last checkpoint are not
 run: they draw no noise and count nothing, so ``n_used`` is the same.

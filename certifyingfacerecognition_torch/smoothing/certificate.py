@@ -28,7 +28,8 @@ class L2Certificate:
         return gaussian_quantile(p_a_bar)
 
     def compute_gap_vec(self, p_a_bar):
-        """compute_gap over a numpy array in one scipy call (the adaptive
-        threshold builder evaluates it at every candidate success count)."""
+        """compute_gap over a numpy array in one scipy call
+        (adaptive_device.build_thresholds evaluates it at every candidate
+        success count)."""
         from scipy.stats import norm
         return norm.ppf(p_a_bar)
