@@ -48,10 +48,6 @@ def _reject_unported(args) -> None:
             raise SystemExit(f"--{name.replace('_', '-')} is not ported to "
                              f"the PyTorch package yet: ROADMAP.md 'Open "
                              f"items' 1, item {item}")
-    if args.face_recog_method != "insightface":
-        raise SystemExit("--face-recog-method facenet* is not ported to the "
-                         "PyTorch package yet: ROADMAP.md 'Open items' 1, "
-                         "item 10 (models/facenet.py)")
 
 
 def get_latent_codes(data_dir: str, n: int = None) -> np.ndarray:

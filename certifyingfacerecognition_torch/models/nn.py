@@ -19,11 +19,25 @@ def _per_channel(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return v.reshape((1, -1) + (1,) * (x.dim() - 2))
 
 
-def conv2d(x: torch.Tensor, k_hwio: torch.Tensor, padding: int = 1,
+def conv2d(x: torch.Tensor, k_hwio: torch.Tensor, padding=1,
            stride: int = 1, groups: int = 1) -> torch.Tensor:
-    """NCHW conv with an HWIO kernel (zero padding)."""
+    """NCHW conv with an HWIO kernel (zero padding). ``padding`` is an int
+    (every side) or ((top, bottom), (left, right)), as the JAX package's
+    conv2d takes it."""
+    if not isinstance(padding, int):
+        (top, bottom), (left, right) = padding
+        if top == bottom and left == right:
+            padding = (top, left)
+        else:
+            x = F.pad(x, (left, right, top, bottom))
+            padding = 0
     return F.conv2d(x, k_hwio.permute(3, 2, 0, 1), padding=padding,
                     stride=stride, groups=groups)
+
+
+def max_pool_3x3_s2(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-2 VALID max-pool of NCHW x."""
+    return F.max_pool2d(x, 3, stride=2)
 
 
 def upconv(x: torch.Tensor, k4_hwio: torch.Tensor) -> torch.Tensor:

@@ -13,7 +13,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from . import iresnet, stylegan
+from . import facenet, iresnet, stylegan
 from ..constants import INP_RESOLS, MEAN, STD
 from ..ops import distances as D
 from ..ops.resize import transform_for_frs, transform_for_frs_cb
@@ -25,8 +25,7 @@ def frm_apply(frs_method: str, frm_params: Dict, x: torch.Tensor, *,
     """The face-recognition backbone of ``frs_method``."""
     if frs_method == "insightface":
         return iresnet.apply(frm_params, x, dtype=dtype)
-    raise NotImplementedError("FaceNet is not ported yet (ROADMAP.md "
-                              "'Open items' 1, item 10)")
+    return facenet.apply(frm_params, x, dtype=dtype)
 
 
 def make_lat2embs(frs_method: str, resolution: int, dtype=torch.float32

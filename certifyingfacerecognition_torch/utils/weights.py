@@ -162,14 +162,16 @@ def load_generator_params(spec: str, model_name: str = "stylegan_ffhq",
 def load_frm_params(spec: str, frs_method: str = "insightface",
                     seed: int = 0, device="cuda") -> Dict:
     """spec: path to .npz/.pth FRM weights, or 'random[:<seed>]'."""
-    from ..models import iresnet
+    from ..models import facenet, iresnet
 
-    if frs_method != "insightface":
-        raise NotImplementedError("FaceNet is not ported yet (ROADMAP.md "
-                                  "'Open items' 1, item 10)")
+    if frs_method == "insightface":
+        if spec.startswith("random"):
+            return iresnet.convert_torch_state_dict(
+                iresnet.random_torch_style_state_dict(
+                    "iresnet50", seed=_seed_of(spec, seed)), device=device)
+        return _cached_convert(spec, iresnet.convert_state_dict_np, device,
+                               key="iresnet50")
     if spec.startswith("random"):
-        return iresnet.convert_torch_state_dict(
-            iresnet.random_torch_style_state_dict(
-                "iresnet50", seed=_seed_of(spec, seed)), device=device)
-    return _cached_convert(spec, iresnet.convert_state_dict_np, device,
-                           key="iresnet50")
+        return facenet.random_params(_seed_of(spec, seed), device=device)
+    return _cached_convert(spec, facenet.convert_state_dict_np, device,
+                           key="facenet")

@@ -10,7 +10,10 @@ header and the idx, label, predict, correct, gap and radius columns must
 match row for row: fixed N, --adaptive in both modes and with every
 engine, and --synthesis-resolution 16 --cascade, whose certified rows must
 also equal a plain native run's. The adaptive runs' samples-used lines
-must match too.
+must match too. FaceNet (--face-recog-model facenet, the random:0 FaceNet
+weights, a gallery from the JAX facenet pipeline at 32^2) in f32: the
+same rows for two identities; on random weights its embeddings are
+nearly equal, so these decisions are held equal in f32 only.
 
 Torch runs one intra-op thread per process: the suite runs in several
 pytest-xdist workers that share the machine's cores."""
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from certifyingfacerecognition_tpu.cli import certify as jcli
-from certifyingfacerecognition_tpu.models import iresnet
+from certifyingfacerecognition_tpu.models import facenet, iresnet
 from certifyingfacerecognition_tpu.models.pipeline import FacePipeline
 from certifyingfacerecognition_tpu.ops import geometry as G
 from certifyingfacerecognition_tpu.utils import weights as W
@@ -51,6 +54,11 @@ def data_dir(tmp_path_factory):
                             resolution=res)
         np.savez(osp.join(d, name),
                  embs=np.asarray(pipe.lat2embs(jnp.asarray(ws))))
+    pipe = FacePipeline(gen, facenet.random_params(0),
+                        dirs=jnp.asarray(G.get_all_matrices().dirs.T),
+                        frs_method="facenet", resolution=RES)
+    np.savez(osp.join(d, "embs_facenet.npz"),
+             embs=np.asarray(pipe.lat2embs(jnp.asarray(ws))))
     return str(d)
 
 
@@ -65,16 +73,25 @@ def _rows(path):
     return lines[0], [line.split("\t")[:6] for line in lines[1:]]
 
 
-def _compare_clis(data_dir, tmp_path, n_max):
+def _facenet_args(data_dir, out, *extra):
+    """_args with --face-recog-model facenet and the random:0 FaceNet
+    weights."""
+    args = _args(data_dir, out, *extra)
+    args[1] = "facenet"
+    args[args.index("--frm-weights") + 1] = "random:0"
+    return args
+
+
+def _compare_clis(data_dir, tmp_path, n_max, make_args=_args):
     """The JAX CLI with --max n_max against the port's, run as --max
     n_max - 1 then --resume --max n_max (which appends only the missing
     identity); returns the port's rows."""
     out_j, out_t = str(tmp_path / "jax.tsv"), str(tmp_path / "torch.tsv")
-    jcli.main(_args(data_dir, out_j, "--max", str(n_max)))
-    tcli.main(_args(data_dir, out_t, "--max", str(n_max - 1),
-                    "--device", "cpu"))
-    tcli.main(_args(data_dir, out_t, "--max", str(n_max), "--resume",
-                    "--device", "cpu"))
+    jcli.main(make_args(data_dir, out_j, "--max", str(n_max)))
+    tcli.main(make_args(data_dir, out_t, "--max", str(n_max - 1),
+                        "--device", "cpu"))
+    tcli.main(make_args(data_dir, out_t, "--max", str(n_max), "--resume",
+                        "--device", "cpu"))
     head_j, rows_j = _rows(out_j)
     head_t, rows_t = _rows(out_t)
     assert head_t == head_j == tcli.TSV_HEADER
@@ -92,6 +109,12 @@ def test_port_tsv_matches_jax_cli(data_dir, tmp_path):
 def test_port_tsv_matches_jax_cli_two_identities(data_dir, tmp_path):
     """The small case of the test above."""
     rows = _compare_clis(data_dir, tmp_path, 3)
+    assert [r[0] for r in rows] == ["0", "1"]
+
+
+def test_port_tsv_matches_jax_cli_facenet(data_dir, tmp_path):
+    """The two-identity case with FaceNet, f32."""
+    rows = _compare_clis(data_dir, tmp_path, 3, _facenet_args)
     assert [r[0] for r in rows] == ["0", "1"]
 
 
