@@ -1,12 +1,15 @@
 """Attack CLI (port of certifyingfacerecognition_tpu/cli/main_attack.py):
-gallery embeddings computed once and cached, per-chunk PGD attacks, and
+gallery embeddings computed once and cached, per-chunk attacks, and
 the --eval-files aggregation, on one CUDA device by default (--device cpu
 runs on the CPU).
 
 Same flags, defaults and artifact layout (exp_results/<out>/{results,
-logs,figs}) as the JAX CLI. Only the PGD attack (--attack-type manual,
-the reference's default) is ported; the flags of unported parts exit with
-a message that names the ROADMAP item porting them.
+logs,figs}) as the JAX CLI: PGD (--attack-type manual, the reference's
+default), the AutoAttack family (apgd-ce, apgd-dlr, apgd-t, fab-t, square
+and the autoattack, autoattack-rand and autoattack-plus presets) and
+--run-checks, for every --face-recog-method. The flags of unported parts
+(multi-device runs, profiling) exit with a message that names the ROADMAP
+item porting them.
 """
 
 from __future__ import annotations
@@ -27,12 +30,6 @@ from . import opts
 
 # flag -> (default, ROADMAP item of ROADMAP.md "Open items" 1 porting it)
 _NOT_PORTED = {
-    "attack_type": ("manual", "12 (attacks other than PGD)"),
-    "n_target_classes": (10, "12 (attacks other than PGD)"),
-    "autoattack_iters": (100, "12 (attacks other than PGD)"),
-    "square_queries": (5000, "12 (attacks other than PGD)"),
-    "apgd_use_cli_iters": (False, "12 (attacks other than PGD)"),
-    "run_checks": (False, "12 (attacks/checks.py)"),
     "mesh": (False, "9 (parallel runs)"),
     "multihost": (False, "9 (parallel runs)"),
     "coordinator_address": (None, "9 (parallel runs)"),

@@ -26,15 +26,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-lin-comb", action="store_true", default=False,
                         help="Compute adv NOT as lin. comb. of directions")
     parser.add_argument("--attack-type", type=str, default="manual",
-                        choices=ATTACKS,
-                        help="Attack to perform (only 'manual' is ported)")
+                        choices=ATTACKS, help="Attack to perform")
     parser.add_argument("--iters", type=int, default=10,
                         help="Optimization iterations per instance")
     parser.add_argument("--restarts", type=int, default=10,
                         help="Random restarts per instance")
     parser.add_argument("--n-target-classes", type=int, default=10,
-                        help="num of classes for targetted attacks "
-                             "(not ported yet)")
+                        help="num of classes for targetted attacks")
     parser.add_argument("--attrs2drop", nargs="+", default=[],
                         choices=list(ATTRS.keys()),
                         help="List of attributes to NOT consider for attacks")
@@ -90,13 +88,20 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--mesh", action="store_true", default=False,
                         help="not ported yet")
     parser.add_argument("--autoattack-iters", type=int, default=100,
-                        help="not ported yet")
+                        help="Per-attack iteration budget inside "
+                             "--attack-type autoattack (set_version "
+                             "default 100); lower for smoke runs")
     parser.add_argument("--square-queries", type=int, default=5000,
-                        help="not ported yet")
+                        help="Square query budget inside --attack-type "
+                             "autoattack (set_version default 5000)")
     parser.add_argument("--apgd-use-cli-iters", action="store_true",
-                        default=False, help="not ported yet")
+                        default=False,
+                        help="Honor --iters/--restarts for apgd-ce/apgd-dlr "
+                             "(by default they run the reference's effective "
+                             "100x1 and a warning is logged)")
     parser.add_argument("--run-checks", action="store_true", default=False,
-                        help="not ported yet")
+                        help="Run defense sanity checks before attacking "
+                             "(autoattack checks.py equivalents)")
     parser.add_argument("--multihost", action="store_true", default=False,
                         help="not ported yet")
     parser.add_argument("--coordinator-address", type=str, default=None,

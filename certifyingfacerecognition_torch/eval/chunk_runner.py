@@ -1,5 +1,6 @@
 """Attack workload runner: per-chunk attack loop and offline aggregation
-(port of certifyingfacerecognition_tpu/eval/chunk_runner.py, PGD only).
+(port of certifyingfacerecognition_tpu/eval/chunk_runner.py, on one
+device).
 
   * each batch of identities is attacked with its own torch.Generator,
     seeded with the reference's per-batch seed seed + num_chunk *
@@ -23,6 +24,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..attacks.autoattack import (AttackResult, find_adversaries_autoattack,
+                                  make_standard_evaluation)
+from ..attacks.checks import run_all_checks
+from ..attacks.losses import compute_loss
 from ..attacks.pgd import assert_deltas_feasible, find_adversaries_pgd
 from ..constants import ATTRS
 from ..models.pipeline import make_lat2embs
@@ -68,24 +73,73 @@ def make_predict_fn(frs_method: str, resolution: int, dtype=torch.float32
     return predict
 
 
+AUTOATTACK_PRESETS = ("autoattack", "autoattack-rand", "autoattack-plus")
+# attacks whose deltas are minimum-norm (FAB) or may come from FAB-t (the
+# presets): reported, not asserted feasible
+_UNBOUNDED = ("fab-t", "fab") + AUTOATTACK_PRESETS
+
+
 def _make_attack_step(dists_fn: Callable, region: G.RegionMatrices, args
                       ) -> Callable:
-    """step(params, lats, labels, gen) -> PGDResult over one batch of
-    identities. Only the PGD attack (--attack-type manual) is ported."""
-    if args.attack_type != "manual":
-        raise SystemExit(f"--attack-type {args.attack_type} is not ported "
-                         "to the PyTorch package yet: ROADMAP.md 'Open "
-                         "items' 1, item 12 (rest)")
+    """step(params, lats, labels, gen) -> (deltas, success, magnitudes)
+    over one batch of identities: PGD (--attack-type manual), one
+    AutoAttack-family attack, or an AutoAttack preset (a host loop over
+    its attacks with robust-flag accumulation)."""
+    if args.attack_type in AUTOATTACK_PRESETS:
+        run_eval = make_standard_evaluation(
+            dists_fn, region,
+            version=args.attack_type.partition("-")[2] or "standard",
+            square_queries=args.square_queries,
+            preset_iters=args.autoattack_iters, logger=args.LOGGER,
+            run_checks=args.run_checks)
+
+        def step(params, lats, labels, gen):
+            res = run_eval(params, lats, labels, gen)
+            return AttackResult(res.deltas, res.success, res.magnitudes)
+
+        return step
+
+    if args.attack_type == "manual":
+        def step(params, lats, labels, gen):
+            return find_adversaries_pgd(
+                partial(dists_fn, params), lats, labels, gen, region,
+                opt_name=args.optim, lr=args.lr, iters=args.iters,
+                momentum=args.momentum, loss_type=args.loss,
+                lin_comb=args.lin_comb, random_init=True,
+                rand_init_on_surf=not args.not_on_surf,
+                restarts=args.restarts)
+
+        return step
 
     def step(params, lats, labels, gen):
-        return find_adversaries_pgd(
+        return find_adversaries_autoattack(
             partial(dists_fn, params), lats, labels, gen, region,
-            opt_name=args.optim, lr=args.lr, iters=args.iters,
-            momentum=args.momentum, loss_type=args.loss,
-            lin_comb=args.lin_comb, random_init=True,
-            rand_init_on_surf=not args.not_on_surf, restarts=args.restarts)
+            args.attack_type, iters=args.iters, restarts=args.restarts,
+            n_target_classes=args.n_target_classes,
+            apgd_use_cli_iters=args.apgd_use_cli_iters)
 
     return step
+
+
+def _run_checks(params, chunk_lats, labels, dists_fn, region, log) -> None:
+    """The pre-attack check battery on the chunk's first batch: the
+    classifier logits(p) = -dists(lats + p @ dirs^T) at p = 0, and the
+    gradient of the xent attack loss there."""
+    lats = torch.as_tensor(chunk_lats, device=labels.device)
+    dirs_t = region.dirs.t()
+
+    def logits0(p):
+        return -dists_fn(params, lats + G.matmul_f32(p, dirs_t))
+
+    def grad_fn(p):
+        p = p.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = compute_loss(-logits0(p), labels, loss_type="xent")
+            return torch.autograd.grad(loss, p)[0]
+
+    zeros = torch.zeros((len(lats), region.dirs.shape[1]),
+                        device=labels.device)
+    run_all_checks(logits0, zeros, labels, grad_fn=grad_fn, logger=log)
 
 
 def eval_chunk(params: Dict, lat_codes: np.ndarray, num_chunk: int, args,
@@ -107,6 +161,10 @@ def eval_chunk(params: Dict, lat_codes: np.ndarray, num_chunk: int, args,
 
     start = num_chunk * chunk_length
     chunk_lats = np.asarray(lat_codes[start:start + chunk_length], np.float32)
+    if args.run_checks:
+        _run_checks(params, chunk_lats[:bs],
+                    torch.arange(start, start + bs, device=device), dists_fn,
+                    region, log)
 
     deltas, successes, magnitudes, all_labels = [], [], [], []
     tot = 0
@@ -116,10 +174,11 @@ def eval_chunk(params: Dict, lat_codes: np.ndarray, num_chunk: int, args,
                               device=device)
         gen = torch.Generator().manual_seed(
             args.seed + num_chunk * chunk_length + idx // bs)
-        res = attack_step(params, batch, labels, gen)
-        deltas.append(res.best_deltas.cpu().numpy())
-        successes.append(res.found.cpu().numpy())
-        magnitudes.append(res.magnitudes.cpu().numpy())
+        res_deltas, res_success, res_mags = attack_step(params, batch,
+                                                        labels, gen)
+        deltas.append(res_deltas.cpu().numpy())
+        successes.append(res_success.cpu().numpy())
+        magnitudes.append(res_mags.cpu().numpy())
         all_labels.append(labels.cpu().numpy())
         tot += batch.shape[0]
         mags = np.concatenate(magnitudes)
@@ -135,10 +194,13 @@ def eval_chunk(params: Dict, lat_codes: np.ndarray, num_chunk: int, args,
     log.info(f"Finished chunk computation. Time={time() - start_time:3.2f}s")
 
     n_succ = int(successes.sum())
-    if n_succ:
+    # the AutoAttack family works in the reduced space; FAB's deltas are
+    # minimum-norm and may exceed the budget (reported, not asserted)
+    lin_comb = args.lin_comb or args.attack_type != "manual"
+    if n_succ and args.attack_type not in _UNBOUNDED:
         assert_deltas_feasible(torch.as_tensor(deltas[successes],
                                                device=device),
-                               region, lin_comb=args.lin_comb)
+                               region, lin_comb=lin_comb)
 
     avg_pert = 0.0
     if n_succ == 0:
@@ -146,7 +208,7 @@ def eval_chunk(params: Dict, lat_codes: np.ndarray, num_chunk: int, args,
     else:
         succ_idx = np.nonzero(successes)[0]
         pert = deltas[succ_idx]
-        if args.lin_comb:
+        if lin_comb:
             pert = pert @ region.dirs.cpu().numpy().T
         adv_lats = chunk_lats[succ_idx] + pert.astype(np.float32)
         preds_parts = []
@@ -202,7 +264,7 @@ def _plot_advs(params, chunk_lats, deltas, successes, all_labels, adv_preds,
     adv_preds = adv_preds[:max_figs]
     lats = chunk_lats[succ_idx]
     pert = deltas[succ_idx]
-    if args.lin_comb:
+    if args.lin_comb or args.attack_type != "manual":
         pert = pert @ region.dirs.cpu().numpy().T
     device = params["gallery"].device
 

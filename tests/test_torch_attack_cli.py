@@ -38,6 +38,7 @@ from certifyingfacerecognition_tpu.models import iresnet as jir
 from certifyingfacerecognition_tpu.models import pipeline as jpl
 from certifyingfacerecognition_tpu.models import stylegan as jsg
 from certifyingfacerecognition_tpu.utils import weights as jw
+from certifyingfacerecognition_torch.attacks.checks import run_all_checks
 from certifyingfacerecognition_torch.cli import main_attack as tmain
 from certifyingfacerecognition_torch.eval import artifacts
 from certifyingfacerecognition_torch.eval import chunk_runner as tcr
@@ -159,11 +160,105 @@ def test_synthesis_resolution_gallery_name(data_dir, tmp_path, monkeypatch):
         ["results_chunk0of2.txt", "results_chunk1of2.txt"]
 
 
+# the AutoAttack family at the file's tiny size, one identity per chunk:
+# 1 iteration, 1 restart, 2 targets, the presets at 1 iteration and 4
+# Square queries
+AA_FLAGS = ["--chunks", "4", "--batch-size", "1", "--iters", "1",
+            "--restarts", "1", "--n-target-classes", "2",
+            "--autoattack-iters", "1", "--square-queries", "4",
+            "--apgd-use-cli-iters"]
+BOUNDED = ("apgd-ce", "apgd-dlr", "apgd-t", "square")
+
+
+@pytest.mark.parametrize("case", [
+    ["--attack-type", "apgd-ce"], ["--attack-type", "apgd-dlr"],
+    ["--attack-type", "apgd-t"], ["--attack-type", "fab-t"],
+    ["--attack-type", "square"], ["--attack-type", "autoattack"],
+    ["--attack-type", "autoattack-rand"],
+    ["--attack-type", "autoattack-plus"],
+    ["--attack-type", "autoattack", "--run-checks"],
+    ["--attack-type", "apgd-t", "--face-recog-method", "facenet",
+     "--frm-weights", "random:0"]],
+    ids=["apgd-ce", "apgd-dlr", "apgd-t", "fab-t", "square", "autoattack",
+         "autoattack-rand", "autoattack-plus", "run-checks", "facenet"])
+def test_autoattack_family_cli(data_dir, tmp_path, monkeypatch, case):
+    """One chunk of one identity, then --eval-files: the artifacts,
+    every saved success re-verified through the port's exact predictor at
+    the saved delta, the bounded attacks' deltas feasible (FAB-t's and the
+    presets' are reported, not asserted), and --run-checks's battery in
+    the chunk log."""
+    checked = []
+    monkeypatch.setattr(tcr, "run_all_checks", lambda *a, **k: checked.append(
+        run_all_checks(*a, **k)))
+    monkeypatch.chdir(tmp_path)
+    d = tmp_path / "data"
+    d.mkdir()
+    for name in ("w.npy", "frm.npz"):
+        (d / name).write_bytes(open(osp.join(data_dir, name), "rb").read())
+    common = _common(str(d))
+    common[common.index("--frm-weights") + 1] = str(d / "frm.npz")
+    # logger names are process-wide: one output directory per case
+    name = "aa" + "".join(case).replace(":", "")
+    tmain.main(["--output-dir", name, "--num-chunk", "0"] + common + AA_FLAGS
+               + case)
+    method = case[case.index("--face-recog-method") + 1] \
+        if "--face-recog-method" in case else "insightface"
+    out = osp.join("exp_results", name)
+    stats = artifacts.parse_chunk_log(osp.join(out, "logs",
+                                               "results_chunk0of4.txt"))
+    assert stats["instances"] == 1.0
+    # a deterministic model with logits and live gradients passes every
+    # check of the battery
+    assert checked == ([{"randomized": False, "prob_output": False,
+                         "zero_grad": False}] if "--run-checks" in case
+                       else [])
+    data_file = osp.join(out, "results", "results_chunk0of4.npz")
+    n = int(stats["successes"])
+    if n:
+        data = artifacts.load_chunk_data(data_file)
+        idx, deltas = data["successes"], data["deltas"]
+        assert deltas.shape == (n, 5) and len(idx) == n
+        region = tg.get_all_matrices(scale_factor=1e-4)
+        if case[1] in BOUNDED:
+            assert tg.in_ellps(torch.tensor(deltas), region.red_ellipse,
+                               atol=1e-3)
+        frm = (tw.load_params(str(d / "frm.npz"), device="cpu")
+               if method == "insightface"
+               else tw.load_frm_params("random:0", method, device="cpu"))
+        params = {"gen": tw.load_generator_params("random", resolution=RES,
+                                                  device="cpu"),
+                  "frm": frm,
+                  "gallery": torch.tensor(np.load(
+                      d / f"embs_{method}.npz")["embs"])}
+        w = np.load(d / "w.npy")[idx] + deltas @ region.dirs.numpy().T
+        preds = tcr.make_predict_fn(method, RES)(params, torch.tensor(
+            w.astype(np.float32))).numpy()
+        assert np.all(preds != idx), (preds, idx)
+    else:
+        assert not osp.exists(data_file)
+    tmain.main(["--output-dir", name, "--eval-files", "--scale-factor",
+                "1e-4"])
+    results = open(osp.join(out, "results.txt")).read().split("\n")
+    assert results[1] == "instances:1"
+
+
+def test_fab_untargeted_raises_as_jax(data_dir, tmp_path, monkeypatch):
+    """--attack-type fab: the JAX package refuses untargeted FAB (one
+    gradient per gallery class) when the attack runs, with
+    NotImplementedError; the port's CLI does the same."""
+    from certifyingfacerecognition_tpu.attacks import autoattack as jaa
+
+    with pytest.raises(NotImplementedError) as want:
+        jaa.run_attack(None, None, None, None, "fab")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(NotImplementedError) as got:
+        tmain.main(["--output-dir", "fab", "--num-chunk", "0",
+                    "--attack-type", "fab"] + _common(data_dir))
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("flag", [
-    ["--attack-type", "apgd-ce"], ["--attack-type", "autoattack"],
-    ["--run-checks"], ["--mesh"], ["--multihost"],
-    ["--face-recog-method", "facenet"],
-    ["--profile-dir", "trace"], ["--n-target-classes", "3"]])
+    ["--mesh"], ["--multihost"], ["--profile-dir", "trace"]])
 def test_unported_flags_raise(tmp_path, monkeypatch, flag):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit, match="ROADMAP"):
