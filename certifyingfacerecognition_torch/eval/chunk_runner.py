@@ -74,9 +74,9 @@ def make_predict_fn(frs_method: str, resolution: int, dtype=torch.float32
 
 
 AUTOATTACK_PRESETS = ("autoattack", "autoattack-rand", "autoattack-plus")
-# attacks whose deltas are minimum-norm (FAB) or may come from FAB-t (the
+# attacks whose deltas are minimum-norm (FAB-t) or may come from FAB-t (the
 # presets): reported, not asserted feasible
-_UNBOUNDED = ("fab-t", "fab") + AUTOATTACK_PRESETS
+_UNBOUNDED = ("fab-t",) + AUTOATTACK_PRESETS
 
 
 def _make_attack_step(dists_fn: Callable, region: G.RegionMatrices, args

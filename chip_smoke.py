@@ -630,7 +630,8 @@ def row_seconds(row):
     return hh * 3600 + mm * 60 + ss + float("0." + (frac or "0"))
 
 
-def certify_run(main, root, frm_path, out, tail, n=1024, extra=()):
+def certify_run(main, root, frm_path, out, tail, n=1024, extra=(),
+                model="insightface"):
     """One cfr-certify run (its standard output echoed); returns (rows,
     samples, seconds summed over the TSV's per-identity times, {identity:
     samples used} from an adaptive run's lines). ``samples`` counts a
@@ -639,7 +640,7 @@ def certify_run(main, root, frm_path, out, tail, n=1024, extra=()):
     n0 = 128
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        main(["--face-recog-model", "insightface", "--outfile", out,
+        main(["--face-recog-model", model, "--outfile", out,
               "--sigma", "0.1", "--data-dir", root, "--resolution", "1024",
               "--dtype", "bf16", "--batch-sz", "128", "--N0", str(n0),
               "--N", str(n), "--gen-weights", "random:0",
@@ -831,6 +832,76 @@ def scaled_frm(frm_path, w, out_path, target=25.0):
     return c
 
 
+def check_facenet(main, bc, root, w, gen_params, gpu):
+    """Phase 8, FaceNet certify at 1024^2 through the chain kernels:
+    FaceNet (InceptionResnetV1 at 160^2, random:0 weights, full widths)
+    embeds phase 5's latents three ways (bf16 through the chain tail, plain
+    bf16, f32): the chain path's mean |error| against f32 must be at most
+    twice the plain bf16 path's. Its gallery, from the chain path, then
+    serves cfr-certify --face-recog-model facenet with phase 5's settings,
+    with CFR_TAIL=bc (all four chain counters must rise) and on plain bf16
+    (none may). On random weights FaceNet's embeddings of different faces
+    are nearly equal, so the rows are printed, not compared. Returns the
+    bc run's launches."""
+    from certifyingfacerecognition_torch.models.pipeline import FacePipeline
+    from certifyingfacerecognition_torch.ops.geometry import get_all_matrices
+    from certifyingfacerecognition_torch.utils import weights as W
+
+    frm = W.load_frm_params("random:0", "facenet")
+    dirs = torch.as_tensor(get_all_matrices().dirs.T)
+    embs = {}
+    for tag, dtype, tail in (("bc", torch.bfloat16, "bc"),
+                             ("plain16", torch.bfloat16, ""),
+                             ("f32", torch.float32, "")):
+        os.environ["CFR_TAIL"] = tail
+        bc.reset_launches()
+        pipe = FacePipeline(gen_params, frm, dirs=dirs, frs_method="facenet",
+                            resolution=1024, dtype=dtype)
+        embs[tag] = pipe.lat2embs(w).float().cpu().numpy()
+        launches = chain_launches(bc)
+        if (tag == "bc") != all(launches.values()):
+            raise AssertionError(f"FaceNet embed ({tag}): launches "
+                                 f"{launches}")
+        del pipe
+    os.environ["CFR_TAIL"] = "bc"
+    for tag, e in embs.items():
+        assert e.shape == (4, 512) and np.isfinite(e).all(), tag
+        assert np.allclose(np.linalg.norm(e, axis=1), 1.0, atol=1e-3), tag
+    err = {t: np.abs(embs[t] - embs["f32"]) for t in ("bc", "plain16")}
+    log(f"check FaceNet 1024^2 embeddings vs f32: mean|err| chain tail "
+        f"{err['bc'].mean():.3e} (max {err['bc'].max():.3e}), plain bf16 "
+        f"{err['plain16'].mean():.3e} (max {err['plain16'].max():.3e}); "
+        f"largest difference between two identities' f32 embeddings "
+        f"{np.abs(embs['f32'][:, None] - embs['f32'][None]).max():.3e}")
+    if err["bc"].mean() > 2 * err["plain16"].mean():
+        raise AssertionError("the chain tail's FaceNet embeddings are more "
+                             "than twice as far from f32 as plain bf16's")
+    np.savez(os.path.join(root, "embs_facenet.npz"), embs=embs["bc"])
+    torch.cuda.empty_cache()
+
+    rates = {}
+    for tag, tail in (("bc", "bc"), ("plain16", "")):
+        bc.reset_launches()
+        rows, samples, secs, _ = certify_run(
+            main, root, "random:0", os.path.join(root, f"facenet_{tag}.tsv"),
+            tail, model="facenet")
+        launches = chain_launches(bc)
+        log(f"certify --face-recog-model facenet ({tag}): {rows}; launches "
+            f"{launches}")
+        if (tag == "bc" and not all(launches.values())) or \
+                (tag != "bc" and any(bc.LAUNCHES.values())):
+            raise AssertionError(f"FaceNet certify ({tag}): launches "
+                                 f"{dict(bc.LAUNCHES)}")
+        rates[tag] = samples / secs
+        if tag == "bc":
+            bc_launches = launches
+        log(f"certify FaceNet bf16 "
+            f"{'chain tail' if tag == 'bc' else 'plain ops'}: {samples} "
+            f"samples in {secs:.3f} s = {rates[tag]:.1f} samples/s [{gpu}]")
+        torch.cuda.empty_cache()
+    return bc_launches
+
+
 def attack_run(main, data, frm_path, out, tail, load_embs):
     """One cfr-attack-torch run (PGD, 1024^2, bf16, one chunk of
     ATTACK_IDS identities at batch ATTACK_IDS, 1 restart x 3 iterations,
@@ -848,36 +919,127 @@ def attack_run(main, data, frm_path, out, tail, load_embs):
     return time.time() - t0
 
 
-def check_attack_artifacts(out, w, region, predict, params):
-    """The chunk log and data parse; every saved success is feasible and
-    still misclassified when re-synthesised and re-classified."""
-    from certifyingfacerecognition_torch.attacks.pgd import \
-        assert_deltas_feasible
+def check_attack_artifacts(out, w, region, predict, params, chunk="0of1",
+                           n_ids=ATTACK_IDS, batch=ATTACK_IDS, bounded=True):
+    """The chunk log and data parse; every saved success is still
+    misclassified when re-synthesised and re-classified, and, for a
+    bounded attack, feasible (magnitudes through attacks/pgd.check_deltas
+    at most 1 + 1e-3). Returns (log stats, the saved magnitudes)."""
+    from certifyingfacerecognition_torch.attacks.pgd import (
+        assert_deltas_feasible, check_deltas)
     from certifyingfacerecognition_torch.eval import artifacts
 
     stats = artifacts.parse_chunk_log(
-        os.path.join(out, "logs", "results_chunk0of1.txt"))
+        os.path.join(out, "logs", f"results_chunk{chunk}.txt"))
     assert sorted(stats) == ["avg_mags", "instances", "successes"], stats
-    assert int(stats["instances"]) == ATTACK_IDS
+    assert int(stats["instances"]) == n_ids
     n = int(stats["successes"])
-    data_file = os.path.join(out, "results", "results_chunk0of1.npz")
+    data_file = os.path.join(out, "results", f"results_chunk{chunk}.npz")
     if n == 0:
         assert not os.path.exists(data_file)
-        return stats
+        return stats, np.zeros(0)
     data = artifacts.load_chunk_data(data_file)
     idx, deltas = data["successes"], data["deltas"]
     assert len(idx) == n and deltas.shape == (n, region.dirs.shape[1])
-    assert np.all(data["magnitudes"] <= 1.0 + 1e-3)
     d = torch.as_tensor(deltas, device="cuda")
-    assert_deltas_feasible(d, region)
+    mags = check_deltas(d, region).cpu().numpy()
+    if bounded:
+        assert np.all(mags <= 1.0 + 1e-3), mags
+        assert np.all(data["magnitudes"] <= 1.0 + 1e-3)
+        assert_deltas_feasible(d, region)
+    # zero-padded batches of the attack's size, as the CLI re-verifies: in
+    # bf16 another batch shape may round a borderline identity the other
+    # way
     adv = torch.as_tensor(w[idx], device="cuda") + d @ region.dirs.t()
-    # one zero-padded batch of the attack's size, as the CLI re-verifies:
-    # in bf16 another batch shape may round a borderline identity the
-    # other way
-    adv = torch.cat([adv, adv.new_zeros((ATTACK_IDS - n, adv.shape[1]))])
-    preds = predict(params, adv)[:n].cpu().numpy()
+    preds = []
+    for s in range(0, n, batch):
+        b = adv[s:s + batch]
+        b = torch.cat([b, b.new_zeros((batch - len(b), b.shape[1]))])
+        preds.append(predict(params, b)[:min(batch, n - s)].cpu().numpy())
+    preds = np.concatenate(preds)
     assert np.all(preds != idx), (preds, idx)
-    return stats
+    return stats, mags
+
+
+# Phase 9: the AutoAttack family, one chunk of AA_IDS of the attack data's
+# identities at batch AA_IDS, the full gallery of ATTACK_IDS
+AA_IDS = 16
+AA_FLAGS = ["--batch-size", str(AA_IDS), "--iters", "3", "--restarts", "1",
+            "--n-target-classes", "2", "--autoattack-iters", "3",
+            "--square-queries", "20", "--apgd-use-cli-iters"]
+AA_RUNS = (("apgd-ce", ()), ("apgd-t", ()), ("fab-t", ()), ("square", ()),
+           ("autoattack", ()), ("autoattack", ("--run-checks",)))
+AA_BOUNDED = ("apgd-ce", "apgd-t", "square")
+
+
+def check_autoattack(main, bc, data, frm_path, w, region, params, gpu):
+    """Phase 9 (cwd: the attack runs' root): cfr-attack-torch at 1024^2
+    bf16 with CFR_TAIL=bc for each attack of AA_RUNS, counters zeroed just
+    before each run and read just after (all four chain kernels must have
+    launched); every saved success re-verified, APGD's and Square's deltas
+    feasible, FAB-t's and the preset's magnitudes printed; --run-checks's
+    battery must find the chain path deterministic and its outputs
+    logits; then --eval-files. Returns {run: launches}."""
+    from certifyingfacerecognition_torch.eval import chunk_runner
+
+    os.environ["CFR_TAIL"] = "bc"
+    predict = chunk_runner.make_predict_fn("insightface", 1024,
+                                           torch.bfloat16)
+    checked = []
+    battery = chunk_runner.run_all_checks
+
+    def run_all_checks(*args, **kwargs):
+        checked.append(battery(*args, **kwargs))
+        return checked[-1]
+
+    chunk_runner.run_all_checks = run_all_checks
+    launches_by_run = {}
+    try:
+        for attack, extra in AA_RUNS:
+            name = attack + "".join(extra)
+            out = "aa_" + name.replace("--", "_")
+            bc.reset_launches()
+            t0 = time.time()
+            main(["--output-dir", out, "--data-dir", data, "--attack-type",
+                  attack, "--face-recog-method", "insightface", "--dtype",
+                  "bf16", "--resolution", "1024",
+                  "--chunks", str(ATTACK_IDS // AA_IDS), "--num-chunk", "0",
+                  "--gen-weights", "random:0", "--frm-weights", frm_path,
+                  "--scale-factor", str(ATTACK_SCALE), "--seed", "0",
+                  "--load-embs", *AA_FLAGS, *extra])
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = chain_launches(bc)
+            launches_by_run[name] = launches
+            if not all(launches.values()):
+                raise AssertionError(f"{name}: chain kernels not launched: "
+                                     f"{launches}")
+            stats, mags = check_attack_artifacts(
+                os.path.join("exp_results", out), w, region, predict, params,
+                chunk=f"0of{ATTACK_IDS // AA_IDS}", n_ids=AA_IDS,
+                batch=AA_IDS, bounded=attack in AA_BOUNDED)
+            log(f"attack {name} 1024^2 bf16 chain tail, {AA_IDS} identities "
+                f"at batch {AA_IDS}: {secs:.1f} s for the whole run "
+                f"[{gpu}]; {stats}; launches {launches}; every success "
+                f"re-verified" + (", feasible" if attack in AA_BOUNDED
+                                  else "") +
+                f"; squared Sigma-norms of the saved deltas "
+                f"{np.round(mags, 4).tolist()}")
+    finally:
+        chunk_runner.run_all_checks = battery
+    log(f"attack --run-checks battery: {checked}")
+    if len(checked) != 1 or checked[0]["randomized"] or \
+            checked[0]["prob_output"]:
+        raise AssertionError(f"--run-checks: {checked}")
+    main(["--output-dir", "aa_autoattack", "--eval-files", "--scale-factor",
+          str(ATTACK_SCALE)])
+    results = open(os.path.join("exp_results", "aa_autoattack",
+                                "results.txt")).read().split("\n")
+    log(f"attack autoattack --eval-files results.txt: {results}")
+    assert [r.split(":")[0] for r in results[:4]] == \
+        ["successes", "instances", "rate", "avg_mag"], results
+    assert results[1] == f"instances:{AA_IDS}", results
+    return launches_by_run
 
 
 def attack_grad_check(bc, params, w, b=4, draws=3):
@@ -1054,6 +1216,11 @@ def main() -> int:
                       samples / secs, gpu)
         torch.cuda.empty_cache()
 
+        facenet_launches = check_facenet(certify.main, bc, root, w,
+                                         gen_params, gpu)
+        log(f"FaceNet certify path launches: {facenet_launches}")
+        torch.cuda.empty_cache()
+
         standalone = check_standalone_tail(bc, gen)
         torch.cuda.empty_cache()
 
@@ -1102,12 +1269,15 @@ def main() -> int:
                           device="cuda")}
             for out, tail in (("atk_bc", "bc"), ("atk_plain", "")):
                 os.environ["CFR_TAIL"] = tail
-                stats = check_attack_artifacts(
+                stats, _ = check_attack_artifacts(
                     os.path.join("exp_results", out), w_atk, region,
                     make_predict_fn("insightface", 1024, torch.bfloat16),
                     params)
                 log(f"attack artifacts {out}: {stats}, every success "
                     f"feasible and re-verified")
+            torch.cuda.empty_cache()
+            check_autoattack(main_attack.main, bc, data, frm_atk, w_atk,
+                             region, params, gpu)
         finally:
             os.chdir(cwd)
         torch.cuda.empty_cache()

@@ -100,3 +100,31 @@ def test_conv2d_hwio_and_weight_helpers_match_jax():
     for got, want in zip(tnn.fold_batchnorm(g, b, m, v, 1e-5),
                          jnn.fold_batchnorm(g, b, m, v, 1e-5)):
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("stride,padding,ksize", [
+    (1, 1, (3, 3)), (2, 0, (3, 3)), (1, ((0, 0), (3, 3)), (1, 7)),
+    (1, ((3, 3), (0, 0)), (7, 1)), (2, ((1, 1), (1, 1)), (3, 3)),
+    (1, ((0, 2), (1, 0)), (3, 3))],
+    ids=["pad1", "s2-valid", "1x7", "7x1", "s2-same", "asymmetric"])
+def test_conv2d_stride_and_padding_match_jax(stride, padding, ksize):
+    """conv2d's stride and padding forms (an int, or per side ((top,
+    bottom), (left, right)) as FaceNet's 1x7 / 7x1 and 1x3 / 3x1 convs use
+    them) against the JAX conv2d."""
+    x = _nhwc((2, 9, 10, 4))
+    k = _nhwc(ksize + (4, 5), 1)
+    jpad = ((padding, padding), (padding, padding)) \
+        if isinstance(padding, int) else padding
+    want = jnn.conv2d(jnp.asarray(x), jnp.asarray(k), stride=stride,
+                      padding=jpad, precision=jnn.precision_for(jnp.float32))
+    got = tnn.conv2d(_t(x), torch.tensor(k), padding=padding, stride=stride)
+    np.testing.assert_allclose(got.numpy(), _to_nchw(want), **F32)
+
+
+def test_max_pool_3x3_s2_matches_jax():
+    from certifyingfacerecognition_tpu.models import facenet as jfn
+
+    x = _nhwc((2, 11, 12, 3))
+    want = jfn._max_pool_3x3_s2(jnp.asarray(x))
+    np.testing.assert_array_equal(tnn.max_pool_3x3_s2(_t(x)).numpy(),
+                                  _to_nchw(want))
