@@ -18,6 +18,11 @@ every embedding to NaN).
 * --synthesis-resolution 8: the gallery is computed at 8^2 (equal to the
   JAX pipeline's at 8^2, rtol 1e-4), cached under embs_<method>_sr8.npz
   and read back from that name by --load-embs.
+* Each --attack-type of the AutoAttack family, --run-checks and a
+  FaceNet run (one chunk of one identity, 1 iteration): the artifacts,
+  every saved success re-verified by the port's exact predictor, the
+  bounded attacks' deltas feasible, the check battery's result;
+  --attack-type fab raises the JAX package's NotImplementedError.
 * The flags of unported parts exit with a message naming their ROADMAP
   item.
 

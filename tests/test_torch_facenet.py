@@ -13,7 +13,9 @@ against the JAX package's, on the CPU, with numpy-seeded inputs.
   embedding of the oracle's weights equals the oracle's forward (2e-5).
 * the pipeline's facenet embed at 32^2 synthesis, f32, against the JAX
   make_lat2embs (2e-5 absolute).
-* load_frm_params('random:3', 'facenet') is facenet.random_params(3).
+* load_frm_params('random:3', 'facenet') is facenet.random_params(3); a
+  .pth checkpoint is converted, cached under the JAX package's cache name
+  and read back from the cache by both packages.
 
 Torch runs one intra-op thread per process: the suite runs in several
 pytest-xdist workers that share the machine's cores."""
@@ -127,3 +129,26 @@ def test_pipeline_facenet_embed_matches_jax(jparams):
 def test_load_frm_params_random_facenet():
     got = tw.load_frm_params("random:3", "facenet", device="cpu")
     _assert_trees_equal(got, jfn.random_params(3))
+
+
+def test_load_frm_params_facenet_checkpoint(tmp_path):
+    """A facenet_pytorch-style .pth: converted to the JAX package's tree,
+    cached beside it under the JAX package's cache name, and read back
+    from the cache (.npz) the second time."""
+    import os
+
+    from certifyingfacerecognition_tpu.utils import weights as jweights
+
+    sd = jfn.random_torch_style_state_dict(seed=4)
+    path = str(tmp_path / "facenet.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, path)
+    want = jfn.convert_torch_state_dict(sd)
+    _assert_trees_equal(tw.load_frm_params(path, "facenet", device="cpu"),
+                        want)
+    cache = f"{path}.cfr-facenet-{int(os.path.getmtime(path))}.npz"
+    assert sorted(os.listdir(tmp_path)) == sorted(["facenet.pth",
+                                                   os.path.basename(cache)])
+    _assert_trees_equal(tw.load_frm_params(path, "facenet", device="cpu"),
+                        want)
+    # the JAX package reads the port's cache file as its own
+    _assert_trees_equal(jweights.load_frm_params(path, "facenet"), want)
