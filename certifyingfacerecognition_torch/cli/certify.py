@@ -2,7 +2,8 @@
 randomized-smoothing certification of identities, with a fixed Monte-Carlo
 budget or early stopping (--adaptive), at the native or a reduced
 synthesis resolution (--synthesis-resolution, --cascade), on one CUDA
-device by default (--device cpu runs on the CPU).
+device by default (--device cpu runs on the CPU), or on several with
+--mesh: one process per device, run by torchrun or with --multihost.
 
 Same flags, defaults and TSV schema (``idx label predict correct gap radius
 time``, one row appended per identity) as the JAX CLI:
@@ -10,8 +11,9 @@ time``, one row appended per identity) as the JAX CLI:
   * radius = sigma.min() * gap;
   * --skip/--max striding (with the reference's (i+1) arithmetic), then the
     --chunks/--num-chunk split; --resume skips identities already written.
-Flags of features this port does not have yet exit with a message that
-names the ROADMAP item porting them.
+With --mesh every rank runs the same identity loop: the MC batch is split
+over the mc ranks, the gallery over the --mesh-id ranks, and rank 0 alone
+writes the TSV; the TSV does not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from time import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import FRS_METHODS
 from ..models.pipeline import FacePipeline
@@ -33,17 +36,6 @@ from ..smoothing.smooth import Smooth, identity_generator
 from ..utils import weights as W
 
 TSV_HEADER = "idx\tlabel\tpredict\tcorrect\tgap\tradius\ttime"
-
-# flag -> (default, ROADMAP item of ROADMAP.md "Open items" 1 porting it)
-_NOT_PORTED = {
-    "mesh": (False, "9 (parallel runs)"),
-    "mesh_id": (1, "9 (parallel runs)"),
-    "multihost": (False, "9 (parallel runs)"),
-    "coordinator_address": (None, "9 (parallel runs)"),
-    "num_processes": (None, "9 (parallel runs)"),
-    "process_id": (None, "9 (parallel runs)"),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
@@ -162,17 +154,26 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dtype", type=str, default="fp32",
                         choices=["fp32", "bf16"])
     parser.add_argument("--mesh", action="store_true", default=False,
-                        help="not ported yet")
+                        help="Split the MC batch over the ranks of a process "
+                             "group, one process per device (torchrun, or "
+                             "--multihost); one process alone is a group of "
+                             "one")
     parser.add_argument("--mesh-id", type=int, default=1,
-                        help="not ported yet")
+                        help="With --mesh: id-axis size; shards the gallery "
+                             "over this many devices (1M-identity regime)")
     parser.add_argument("--multihost", action="store_true", default=False,
-                        help="not ported yet")
+                        help="Join a torch.distributed group from "
+                             "--coordinator-address, --num-processes and "
+                             "--process-id (one process per device), or "
+                             "from torchrun's environment when they are not "
+                             "given. Replaces the reference's SLURM job "
+                             "arrays (README.md:17-18) with one group over "
+                             "every host's devices.")
     parser.add_argument("--coordinator-address", type=str, default=None,
-                        help="not ported yet")
-    parser.add_argument("--num-processes", type=int, default=None,
-                        help="not ported yet")
-    parser.add_argument("--process-id", type=int, default=None,
-                        help="not ported yet")
+                        help="host:port of process 0 (only needed without "
+                             "torchrun)")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--resume", action="store_true", default=False,
                         help="Append to an existing outfile, skipping "
                              "already-certified identities")
@@ -181,14 +182,6 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["cuda", "cpu"],
                         help="device to run on (cuda needs a CUDA GPU)")
     return parser
-
-
-def _reject_unported(args) -> None:
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(args, name) != default:
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported to "
-                             f"the PyTorch package yet: ROADMAP.md 'Open "
-                             f"items' 1, item {item}")
 
 
 def load_gallery(args, synthesis_resolution=None,
@@ -222,11 +215,57 @@ def identity_order(num_classes: int, skip: int, max_: int, chunks: int,
     return strided
 
 
+def resumed_ids(outfile: str, num_classes: int, device) -> set:
+    """Identities already in ``outfile``. In a group of several ranks only
+    rank 0 writes the TSV, and another rank may not see it (no shared
+    file system): rank 0's set is broadcast as a bitmask, so that every
+    rank runs the same sequence of collective certifications."""
+    done = set()
+    if osp.isfile(outfile):
+        with open(outfile) as f:
+            for line in f:
+                cols = line.split("\t")
+                if cols and cols[0].isdigit():
+                    done.add(int(cols[0]))
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        mask = torch.zeros((num_classes,), dtype=torch.uint8, device=device)
+        if dist.get_rank() == 0:
+            ids = [i for i in done if i < num_classes]
+            mask[torch.as_tensor(ids, dtype=torch.int64, device=device)] = 1
+        dist.broadcast(mask, src=0)
+        done = set(torch.nonzero(mask)[:, 0].tolist())
+    return done
+
+
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
-    _reject_unported(args)
     device = args.device
+    distributed = args.mesh or args.multihost
+    mesh = None
+    if distributed:
+        from ..parallel.mesh import init_distributed, make_mesh
 
+        coord = (args.coordinator_address, args.num_processes,
+                 args.process_id) if args.multihost else (None,) * 3
+        device = init_distributed(*coord, device=device)
+    try:
+        if args.mesh:
+            mesh = make_mesh(args.mesh_id)
+        if distributed:
+            print(f"distributed: rank {dist.get_rank()} of "
+                  f"{dist.get_world_size()}, backend {dist.get_backend()}, "
+                  f"mesh mc {mesh.n_mc if mesh else 1} x id "
+                  f"{mesh.n_id if mesh else 1}", flush=True)
+        _certify(args, device, mesh)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _certify(args, device, mesh) -> None:
+    # every rank runs the whole loop (the certifications are collective
+    # over the group); rank 0 alone writes the TSV
+    is_writer = not dist.is_initialized() or dist.get_rank() == 0
     region = G.get_all_matrices(boundaries_dir=args.boundaries_dir)
     dirs = region.dirs.T                       # [k, 512] rows
     num_dirs = dirs.shape[0]
@@ -267,17 +306,24 @@ def main(argv=None) -> None:
     def build_smoothed(gallery_arr, resolution):
         """FacePipeline + Smooth at a synthesis resolution: built once for
         the main path, twice under --cascade (fast reduced-resolution +
-        native verifier)."""
+        native verifier). With a mesh the pipeline holds this rank's block
+        of gallery rows."""
+        offset = 0
+        if mesh is not None:
+            from ..parallel.gallery import shard_rows
+
+            offset, stop = shard_rows(len(gallery_arr), mesh.n_id, mesh.id)
+            gallery_arr = gallery_arr[offset:stop]
         pipe = FacePipeline(gen_params, frm_params,
                             dirs=torch.as_tensor(dirs),
                             frs_method=args.face_recog_model,
                             resolution=resolution, dtype=dtype,
                             gallery=torch.as_tensor(gallery_arr),
                             device=device)
-        predict_fn, params = pipe.predict_fn_with_params()
+        predict_fn, params = pipe.predict_fn_with_params(mesh, offset)
         return Smooth(predict_fn, num_classes, sigma, L2Certificate(),
                       noise_dim=num_dirs, batch_size=args.batch_sz,
-                      params=params, device=device)
+                      params=params, device=device, mesh=mesh)
 
     smoothed = build_smoothed(gallery,
                               args.synthesis_resolution or args.resolution)
@@ -291,14 +337,9 @@ def main(argv=None) -> None:
     os.makedirs(osp.dirname(osp.abspath(args.outfile)), exist_ok=True)
     done = set()
     if args.resume:
-        if osp.isfile(args.outfile):
-            with open(args.outfile) as f:
-                for line in f:
-                    cols = line.split("\t")
-                    if cols and cols[0].isdigit():
-                        done.add(int(cols[0]))
+        done = resumed_ids(args.outfile, num_classes, device)
         print(f"Resuming: {len(done)} identities already certified")
-    else:
+    elif is_writer:
         with open(args.outfile, "w+") as f:
             print(TSV_HEADER, file=f, flush=True)
 
@@ -314,6 +355,8 @@ def main(argv=None) -> None:
               f"{n_used}/{args.N0 + args.N} samples")
 
     def write_row(i, prediction, gap, seconds):
+        if not is_writer:
+            return
         elapsed = str(datetime.timedelta(seconds=seconds))
         with open(args.outfile, "a") as f:
             print(f"{i}\t{i}\t{prediction}\t{int(prediction == i)}\t"

@@ -30,11 +30,11 @@ from . import opts
 
 # flag -> (default, ROADMAP item of ROADMAP.md "Open items" 1 porting it)
 _NOT_PORTED = {
-    "mesh": (False, "9 (parallel runs)"),
-    "multihost": (False, "9 (parallel runs)"),
-    "coordinator_address": (None, "9 (parallel runs)"),
-    "num_processes": (None, "9 (parallel runs)"),
-    "process_id": (None, "9 (parallel runs)"),
+    "mesh": (False, "9b (parallel attack runs)"),
+    "multihost": (False, "9b (parallel attack runs)"),
+    "coordinator_address": (None, "9b (parallel attack runs)"),
+    "num_processes": (None, "9b (parallel attack runs)"),
+    "process_id": (None, "9b (parallel attack runs)"),
     "profile_dir": (None, "14 (utils/profiling.py)"),
 }
 

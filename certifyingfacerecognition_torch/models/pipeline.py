@@ -99,12 +99,21 @@ class FacePipeline:
                                           batch)[:n])
             return torch.cat(outs)
 
-    def predict_fn_with_params(self) -> Tuple[Callable, Dict]:
+    def predict_fn_with_params(self, mesh=None, offset: int = 0
+                               ) -> Tuple[Callable, Dict]:
         """(fn, params) with fn(params, z [512], p [B, k]) -> predictions
-        [B] (int64 on the device)."""
+        [B] (int64 on the device). With a ``mesh`` (parallel/mesh.Mesh),
+        ``gallery`` is this rank's shard of the gallery, starting at global
+        row ``offset``, and fn returns global identities (collective over
+        the mesh's id_group)."""
         embed_fn, method = self.embed_fn, self.frs_method
         params = {"gen": self.gen_params, "frm": self.frm_params,
                   "dirs": self.dirs, "gallery": self.gallery}
+        if mesh is not None:
+            from ..parallel.gallery import make_sharded_gallery_predict_fn
+
+            return make_sharded_gallery_predict_fn(
+                embed_fn, mesh.id_group, offset, method), params
 
         def fn(params, z, p):
             with torch.inference_mode():

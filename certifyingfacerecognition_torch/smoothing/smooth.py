@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .certificate import L2Certificate
 from ..utils.device import resolve_device
@@ -58,10 +59,27 @@ def batch_valid(num: int, batch_size: int) -> np.ndarray:
 
 def _make_batch_fn(predict_fn: Callable, num_classes: int,
                    certificate: L2Certificate, batch_size: int,
-                   noise_dim: int, device, with_params: bool = False
-                   ) -> Callable:
+                   noise_dim: int, device, with_params: bool = False,
+                   mesh=None) -> Callable:
     """One MC batch -> per-class counts [num_classes] (f32, on device).
-    Signature: (params, z, x, sigma, generator, n_valid, noise=None)."""
+    Signature: (params, z, x, sigma, generator, n_valid, noise=None).
+
+    With a ``mesh`` (parallel/mesh.Mesh), mc rank m classifies samples
+    [m B / n_mc, (m + 1) B / n_mc) of the batch and the counts are summed
+    over the mesh's mc_group, so every rank returns the whole batch's
+    counts. Each rank draws the whole batch's noise from the generator
+    (B x k floats) and keeps its slice, so the samples, and the results,
+    do not depend on the number of ranks. (The JAX package folds each
+    device's key by its axis index, so its mesh results depend on the
+    mesh shape; the port's noise stream differs from JAX's in any case.)"""
+    lo, n_local = 0, batch_size
+    if mesh is not None:
+        if batch_size % mesh.n_mc:
+            raise ValueError(f"--batch-sz {batch_size} is not a multiple of "
+                             f"the {mesh.n_mc} mc ranks")
+        n_local = batch_size // mesh.n_mc
+        lo = mesh.mc * n_local
+    positions = torch.arange(lo, lo + n_local, device=device)
 
     def batch_counts(params, z, x, sigma, generator, n_valid, noise=None):
         if noise is None:
@@ -70,12 +88,14 @@ def _make_batch_fn(predict_fn: Callable, num_classes: int,
         else:
             noise = torch.as_tensor(noise, dtype=torch.float32,
                                     device=device)
-        p = x[None, :] + noise
+        p = x[None, :] + noise[lo:lo + n_local]
         preds = predict_fn(params, z, p) if with_params else predict_fn(z, p)
-        weights = (torch.arange(batch_size, device=device)
-                   < n_valid).float()
-        return torch.zeros((num_classes,), dtype=torch.float32,
-                           device=device).index_add_(0, preds, weights)
+        weights = (positions < n_valid).float()
+        counts = torch.zeros((num_classes,), dtype=torch.float32,
+                             device=device).index_add_(0, preds, weights)
+        if mesh is not None:
+            dist.all_reduce(counts, group=mesh.mc_group)
+        return counts
 
     return batch_counts
 
@@ -92,13 +112,17 @@ class Smooth:
       noise_dim: k.
       batch_size: device batch of the MC loop.
       device: where noise, counts and the classifier run (default cuda).
+      mesh: optional parallel/mesh.Mesh: each MC batch is split over its
+        mc ranks and the counts summed over them (``_make_batch_fn``);
+        every rank then takes the same decisions.
     """
 
     ABSTAIN = ABSTAIN
 
     def __init__(self, predict_fn: Callable, num_classes: int, sigma,
                  certificate: L2Certificate, noise_dim: int,
-                 batch_size: int = 100, params=None, device="cuda"):
+                 batch_size: int = 100, params=None, device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
         self.num_classes = num_classes
         self.sigma = torch.as_tensor(np.asarray(sigma, np.float32),
@@ -109,7 +133,7 @@ class Smooth:
         self.params = params
         self._batch_fn = _make_batch_fn(
             predict_fn, num_classes, certificate, batch_size, noise_dim,
-            self.device, with_params=params is not None)
+            self.device, with_params=params is not None, mesh=mesh)
         # threshold tables of the device engine (adaptive_device.py), with
         # their device copies, keyed by the full rule config
         self._adaptive_tab_cache = {}

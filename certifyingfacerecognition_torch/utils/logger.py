@@ -13,8 +13,10 @@ import os
 import sys
 
 
-def setup_logger(work_dir: str, logger_name: str) -> logging.Logger:
-    """A logger writing INFO to stdout and DEBUG to work_dir/log.txt."""
+def setup_logger(work_dir: str, logger_name: str,
+                 allow_existing: bool = False) -> logging.Logger:
+    """A logger writing INFO to stdout and DEBUG to work_dir/log.txt;
+    allow_existing=True appends to an existing log.txt."""
     logger = logging.getLogger(logger_name)
     # Check the logger's OWN handlers, not hasHandlers(): that walks up to
     # the root logger and would trip on unrelated root handlers (pytest's
@@ -33,13 +35,21 @@ def setup_logger(work_dir: str, logger_name: str) -> logging.Logger:
 
     os.makedirs(work_dir, exist_ok=True)
     log_path = os.path.join(work_dir, "log.txt")
-    if os.path.isfile(log_path):
+    if os.path.isfile(log_path) and not allow_existing:
         raise SystemExit(f"Log file `{log_path}` already exists!")
     fh = logging.FileHandler(log_path)
     fh.setLevel(logging.DEBUG)
     fh.setFormatter(formatter)
     logger.addHandler(fh)
     return logger
+
+
+def close_logger(logger: logging.Logger) -> None:
+    """Close and detach the handlers of a setup_logger logger, so that the
+    name can be set up again (another run in the same process)."""
+    for handler in list(logger.handlers):
+        handler.close()
+        logger.removeHandler(handler)
 
 
 def print_to_log(text: str, txt_file_path: str) -> None:

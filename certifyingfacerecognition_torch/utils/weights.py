@@ -145,17 +145,16 @@ def load_generator_params(spec: str, model_name: str = "stylegan_ffhq",
                           resolution: int = 1024, seed: int = 0,
                           device="cuda") -> Dict:
     """spec: path to .npz/.pth weights, or 'random[:<seed>]' for randomly
-    initialised weights (benchmarks / smoke tests only)."""
-    from ..models import stylegan
+    initialised weights (benchmarks / smoke tests only). ``model_name``
+    pggan_* loads the PGGAN generator, any other name StyleGAN."""
+    from ..models import pggan, stylegan
 
-    if model_name.startswith("pggan"):
-        raise NotImplementedError("PGGAN is not ported yet (ROADMAP.md "
-                                  "'Open items' 1, item 13)")
+    mod = pggan if model_name.startswith("pggan") else stylegan
     if spec.startswith("random"):
-        return stylegan.random_params(resolution, seed=_seed_of(spec, seed),
-                                      device=device)
+        return mod.random_params(resolution, seed=_seed_of(spec, seed),
+                                 device=device)
     return _cached_convert(
-        spec, lambda sd: stylegan.convert_state_dict_np(sd, resolution),
+        spec, lambda sd: mod.convert_state_dict_np(sd, resolution),
         device, key=f"r{resolution}")
 
 

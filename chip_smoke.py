@@ -51,6 +51,13 @@ Runs straight through and raises (exit code != 0) on any failure:
    the deltas through the chain tail at B = 4, each held to f32 as closely
    as the plain bf16 path's; seconds per PGD iteration (forward,
    backward) at batch 48 for both paths.
+8. and 9. FaceNet certify and the AutoAttack family (check_facenet,
+   check_autoattack);
+10. identity generation at 1024^2, ``cfr-generate-data-torch``: StyleGAN
+   through the chain kernels, on plain bf16 and in fp32, PGGAN in bf16
+   and fp32; codes, images and PNGs checked (check_generation);
+11. ``cfr-certify-torch --mesh`` on a one-rank NCCL group in this
+   process, each TSV equal to phase 5's (check_mesh).
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -1151,13 +1158,248 @@ def pgd_step_times(params, w, region, gpu, reps=3):
     return out
 
 
+GEN_IDS = 32             # StyleGAN identities of phase 10 (two batches)
+PGGAN_IDS = 16
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """An 8-bit RGB, non-interlaced PNG's pixels [H, W, 3], read with zlib
+    and struct alone; every chunk's CRC is checked, and every row must use
+    filter type 0 (what the port writes)."""
+    import struct
+    import zlib
+
+    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG"
+    pos, idat, shape = 8, [], None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        assert zlib.crc32(tag + body) & 0xFFFFFFFF == crc, f"CRC of {tag}"
+        if tag == b"IHDR":
+            w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB",
+                                                                body)
+            assert (depth, ctype, interlace) == (8, 2, 0), body
+            shape = (h, w)
+        elif tag == b"IDAT":
+            idat.append(body)
+        pos += 12 + n
+    h, w = shape
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(
+        h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all(), "a row with a filter other than 0"
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def generate_run(main, out, argv, tail):
+    """One cfr-generate-data-torch run (its log echoed): (seconds, seconds
+    spent writing PNGs, {PNG name: the uint8 array the CLI encoded}), the
+    PNGs decoded and held equal to those arrays."""
+    from certifyingfacerecognition_torch.cli import generate_data
+
+    os.environ["CFR_TAIL"] = tail
+    written, write_png, png_secs = {}, generate_data.write_png, [0.0]
+
+    def record(path, rgb):
+        written[os.path.basename(path)] = rgb.copy()
+        t = time.perf_counter()
+        write_png(path, rgb)
+        png_secs[0] += time.perf_counter() - t
+
+    generate_data.write_png = record
+    buf = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(argv + ["-o", out])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        generate_data.write_png = write_png
+    for line in buf.getvalue().splitlines():
+        log(line)
+    names = sorted(os.listdir(os.path.join(out, "ims")))
+    assert names == sorted(written), (names, sorted(written))
+    for name in names:
+        with open(os.path.join(out, "ims", name), "rb") as f:
+            got = decode_png(f.read())
+        if not np.array_equal(got, written[name]):
+            raise AssertionError(f"{out}/ims/{name} does not decode to the "
+                                 f"array the CLI encoded")
+    return secs, png_secs[0], written
+
+
+def check_generation(main, bc, root, gpu):
+    """Phase 10, identity generation at 1024^2 (cfr-generate-data-torch).
+    StyleGAN-FFHQ (random:0, full widths), Z space, 32 identities at batch
+    16, three times: bf16 with CFR_TAIL=bc (all four chain counters must
+    rise), plain bf16 (none may) and fp32. The codes (z, w, wp: mapping
+    and truncation run in f32) must be equal across the three; the chain
+    path's images must be within phase 5's rule of fp32's (mean |err| at
+    most 1.5x plain bf16's + 1e-4, on the written pixels / 255). Then
+    PGGAN-CelebA-HQ (random weights, 512 -> 16 channels), 16 identities
+    at batch 16, bf16 and fp32: its bf16 image (pggan.apply on the runs'
+    z) within 0.05 of the f32 image's scale at 32^2 (the JAX package's
+    bound, at its test's size) and within 0.02 of it on average at
+    1024^2. Every PNG is decoded with zlib here and must equal the array
+    the CLI encoded. Images/s of each run, whole run (weights, codes,
+    synthesis, PNG encoding)."""
+    from certifyingfacerecognition_torch.models import pggan
+    from certifyingfacerecognition_torch.utils import weights as W
+
+    sg = ["-m", "stylegan_ffhq", "-s", "z", "-n", str(GEN_IDS),
+          "--batch-size", "16", "--weights", "random:0"]
+    runs, codes = {}, {}
+    for tag, dtype, tail in (("bc", "bf16", "bc"), ("plain16", "bf16", ""),
+                             ("f32", "fp32", "")):
+        out = os.path.join(root, f"gen_{tag}")
+        bc.reset_launches()
+        secs, png_secs, written = generate_run(
+            main, out, sg + ["--dtype", dtype], tail)
+        launches = chain_launches(bc)
+        if (tag == "bc") != all(launches.values()) or \
+                (tag != "bc" and any(bc.LAUNCHES.values())):
+            raise AssertionError(f"StyleGAN generation ({tag}): launches "
+                                 f"{dict(bc.LAUNCHES)}")
+        runs[tag] = np.stack([written[k] for k in sorted(written)])
+        codes[tag] = {k: np.load(os.path.join(out, f"{k}.npy"))
+                      for k in ("z", "w", "wp")}
+        log(f"generate StyleGAN 1024^2 {dtype} "
+            f"{'chain tail' if tag == 'bc' else 'plain ops'}: {GEN_IDS} "
+            f"images in {secs:.3f} s = {GEN_IDS / secs:.2f} images/s (whole "
+            f"run, {png_secs:.3f} s of it writing PNGs); launches "
+            f"{launches} [{gpu}]")
+    os.environ["CFR_TAIL"] = "bc"
+    assert runs["f32"].shape == (GEN_IDS, 1024, 1024, 3)
+    assert codes["f32"]["wp"].shape == (GEN_IDS, 18, 512)
+    for tag in ("bc", "plain16"):
+        for k, v in codes["f32"].items():
+            if not np.array_equal(codes[tag][k], v):
+                raise AssertionError(f"{k}.npy of the {tag} run differs "
+                                     f"from the fp32 run's")
+    err = {t: float(np.abs(runs[t].astype(np.float64) - runs["f32"]).mean()
+                    / 255) for t in ("bc", "plain16")}
+    log(f"check generated 1024^2 images vs fp32: mean|err| chain tail "
+        f"{err['bc']:.3e}, plain bf16 {err['plain16']:.3e}")
+    if err["bc"] > 1.5 * err["plain16"] + 1e-4:
+        raise AssertionError("the chain tail's generated images are further "
+                             "from fp32 than phase 5's rule allows")
+    del runs
+
+    pg = ["-m", "pggan_celebahq", "-n", str(PGGAN_IDS), "--batch-size",
+          str(PGGAN_IDS)]
+    for dtype in ("bf16", "fp32"):
+        out = os.path.join(root, f"gen_pggan_{dtype}")
+        bc.reset_launches()
+        secs, png_secs, written = generate_run(
+            main, out, pg + ["--dtype", dtype], "")
+        assert not any(bc.LAUNCHES.values()), bc.LAUNCHES
+        assert len(written) == PGGAN_IDS
+        log(f"generate PGGAN 1024^2 {dtype}: {PGGAN_IDS} images in "
+            f"{secs:.3f} s = {PGGAN_IDS / secs:.2f} images/s (whole run, "
+            f"{png_secs:.3f} s of it writing PNGs) [{gpu}]")
+    z = np.load(os.path.join(root, "gen_pggan_fp32", "z.npy"))
+    assert np.array_equal(z, np.load(os.path.join(root, "gen_pggan_bf16",
+                                                  "z.npy")))
+    # bf16 against f32 on the runs' z, at the JAX test's 32^2 with its
+    # bound on the largest error, and at 1024^2 on the mean error: the JAX
+    # package's own bf16 path drifts further from its f32 path as the
+    # resolution grows (tests/test_torch_pggan.py holds the port's drift
+    # to the JAX package's), so the 32^2 bound does not carry to 1024^2
+    for res, bound in ((32, ("max", 0.05)), (1024, ("mean", 0.02))):
+        params = W.load_generator_params("random", "pggan_celebahq",
+                                         resolution=res)
+        img = {}
+        with torch.inference_mode():
+            for dtype in (torch.bfloat16, torch.float32):
+                img[dtype] = pggan.apply(
+                    params, torch.as_tensor(z, device="cuda"),
+                    resolution=res, dtype=dtype).float().cpu().numpy()
+        assert img[torch.float32].shape == (PGGAN_IDS, 3, res, res)
+        assert np.isfinite(img[torch.bfloat16]).all()
+        scale = max(1.0, float(np.abs(img[torch.float32]).max()))
+        diff = np.abs(img[torch.bfloat16] - img[torch.float32]) / scale
+        stat, limit = bound
+        got = float(getattr(diff, stat)())
+        log(f"check PGGAN {res}^2 bf16 vs f32 (scale max(1, max|f32|) = "
+            f"{scale:.3f}): max|err| / scale {diff.max():.3e}, mean "
+            f"{diff.mean():.3e}; bound on the {stat}: {limit}")
+        if got > limit:
+            raise AssertionError(f"PGGAN's bf16 image at {res}^2: {stat} "
+                                 f"|err| / scale {got:.3e} > {limit}")
+        del params, img, diff
+    torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def check_mesh(main, bc, root, frm_path, rows_bc, gpu):
+    """Phase 11, cfr-certify-torch --mesh on the card, in this process as a
+    one-rank group (torchrun's variables: MASTER_ADDR=localhost, a free
+    MASTER_PORT, WORLD_SIZE=1, RANK=0), with phase 5's data and settings
+    and CFR_TAIL=bc: --mesh, --mesh --mesh-id 1, and --mesh --adaptive
+    guaranteed --adaptive-engine device at phase 5b's settings (one batch
+    per checkpoint, slack 0). The backend must be NCCL, each TSV must
+    equal phase 5's bc.tsv in idx..radius, all four chain counters must
+    rise. One rank on one card runs every collective of the mesh path
+    (the counts' all-reduce, the gallery's all-gather), each over a group
+    of one; several ranks need several GPUs, since NCCL does not put two
+    ranks on one GPU (the multi-rank runs are the CPU tests' gloo runs)."""
+    out = os.path.join(root, "mesh.tsv")
+    per_id = {}
+    env = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+    try:
+        for name, extra in (
+                ("--mesh", ["--mesh"]),
+                ("--mesh --mesh-id 1", ["--mesh", "--mesh-id", "1"]),
+                ("--mesh, adaptive guaranteed, device engine",
+                 ["--mesh", "--adaptive", "guaranteed", "--adaptive-engine",
+                  "device", "--adaptive-chunk-batches", "1",
+                  "--adaptive-slack", "0"])):
+            os.environ.update(MASTER_ADDR="localhost",
+                              MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                              RANK="0")
+            bc.reset_launches()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rows, _, secs, _ = certify_run(main, root, frm_path, out,
+                                               "bc", extra=extra)
+            for line in buf.getvalue().splitlines():
+                log(line)
+            launches = chain_launches(bc)
+            log(f"certify {name}: {rows}; launches {launches}")
+            if "distributed: rank 0 of 1, backend nccl" not in buf.getvalue():
+                raise AssertionError(f"certify {name} did not run on a "
+                                     f"one-rank NCCL group")
+            if tsv_columns(rows) != tsv_columns(rows_bc):
+                raise AssertionError(f"certify {name} differs from phase "
+                                     f"5's rows")
+            if not all(launches.values()):
+                raise AssertionError(f"chain kernels not launched: "
+                                     f"{launches}")
+            per_id[name] = secs / len(rows)
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    log("certify --mesh (one NCCL rank) 1024^2 bf16 chain tail, s/identity: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in per_id.items()) + f" [{gpu}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
     t_start = time.time()
-    from certifyingfacerecognition_torch.cli import certify, main_attack
+    from certifyingfacerecognition_torch.cli import (certify, generate_data,
+                                                     main_attack)
     from certifyingfacerecognition_torch.eval.chunk_runner import \
         make_predict_fn
     from certifyingfacerecognition_torch.ops import geometry as G
@@ -1284,6 +1526,11 @@ def main() -> int:
         attack_grad_check(bc, params, w_atk)
         torch.cuda.empty_cache()
         pgd_step_times(params, w_atk, region, gpu)
+        del params
+        torch.cuda.empty_cache()
+
+        check_generation(generate_data.main, bc, root, gpu)
+        check_mesh(certify.main, bc, root, frm_path, rows, gpu)
 
     records = []
     for name in CHAIN + STANDALONE:

@@ -228,6 +228,27 @@ def test_usage_errors_raise(data_dir, tmp_path, cli, flags):
     ["--mesh"], ["--mesh-id", "2"], ["--multihost"],
     ["--coordinator-address", "localhost:1"], ["--num-processes", "2"],
     ["--process-id", "1"]])
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tcli.main(_args(str(tmp_path), str(tmp_path / "x.tsv"), *flag))
+def test_unported_flags_raise(data_dir, tmp_path, flag):
+    """The multi-device flags, which the port once refused: each parses to
+    the JAX CLI's value, with its default. --mesh with a batch that the mc
+    ranks do not divide raises, as the JAX CLI's assert does (on the
+    harness's 8 virtual devices; the port's Smooth with 2 mc ranks)."""
+    name = flag[0][2:].replace("-", "_")
+    argv = _args(str(tmp_path), str(tmp_path / "x.tsv"))
+    got, want = (cli.build_parser().parse_args(argv + flag)
+                 for cli in (tcli, jcli))
+    assert getattr(got, name) == getattr(want, name)
+    got, want = (cli.build_parser().parse_args(argv) for cli in (tcli, jcli))
+    assert getattr(got, name) == getattr(want, name)
+    if flag == ["--mesh"]:
+        from certifyingfacerecognition_torch.parallel.mesh import Mesh
+        from certifyingfacerecognition_torch.smoothing.certificate import \
+            L2Certificate
+        from certifyingfacerecognition_torch.smoothing.smooth import Smooth
+
+        with pytest.raises(AssertionError, match="batch_size 3"):
+            jcli.main(_args(data_dir, str(tmp_path / "j.tsv"), "--mesh",
+                            "--max", "2", "--batch-sz", "3"))
+        with pytest.raises(ValueError, match="--batch-sz 3"):
+            Smooth(lambda z, p: p, 4, 0.1, L2Certificate(), 5,
+                   batch_size=3, device="cpu", mesh=Mesh(2, 1, 0, 0))
