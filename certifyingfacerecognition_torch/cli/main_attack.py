@@ -7,45 +7,38 @@ Same flags, defaults and artifact layout (exp_results/<out>/{results,
 logs,figs}) as the JAX CLI: PGD (--attack-type manual, the reference's
 default), the AutoAttack family (apgd-ce, apgd-dlr, apgd-t, fab-t, square
 and the autoattack, autoattack-rand and autoattack-plus presets) and
---run-checks, for every --face-recog-method. The flags of unported parts
-(multi-device runs, profiling) exit with a message that names the ROADMAP
-item porting them.
+--run-checks, for every --face-recog-method; --profile-dir traces the
+chunks with torch.profiler.
+
+--mesh or --multihost: one process per device, run by torchrun or with
+--multihost (parallel/mesh.init_distributed; NCCL on cuda, gloo on cpu),
+and the same decomposition under either flag. Each rank
+attacks whole batches of --batch-size identities, batch j of a chunk on
+rank j % world, so --batch-size is the per-device batch (the JAX CLI
+splits the rows of one global batch over its devices instead). Every
+batch keeps its own seed and shape, so the results do not depend on the
+number of ranks. Rank 0 gathers the batches, re-verifies, writes every
+artifact and aggregates; the other ranks write nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os.path as osp
 from time import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..constants import EMB_SIZE
 from ..eval.chunk_runner import (_make_attack_step, eval_chunk, eval_files,
                                  make_dists_fn, make_predict_fn)
 from ..models.pipeline import FacePipeline
 from ..ops import geometry as G
+from ..utils import profiling
 from ..utils import weights as W
 from . import opts
-
-# flag -> (default, ROADMAP item of ROADMAP.md "Open items" 1 porting it)
-_NOT_PORTED = {
-    "mesh": (False, "9b (parallel attack runs)"),
-    "multihost": (False, "9b (parallel attack runs)"),
-    "coordinator_address": (None, "9b (parallel attack runs)"),
-    "num_processes": (None, "9b (parallel attack runs)"),
-    "process_id": (None, "9b (parallel attack runs)"),
-    "profile_dir": (None, "14 (utils/profiling.py)"),
-}
-
-
-def _reject_unported(args) -> None:
-    for name, (default, item) in _NOT_PORTED.items():
-        if getattr(args, name) != default:
-            raise SystemExit(f"--{name.replace('_', '-')} is not ported to "
-                             f"the PyTorch package yet: ROADMAP.md 'Open "
-                             f"items' 1, item {item}")
-
 
 def get_latent_codes(data_dir: str, n: int = None) -> np.ndarray:
     """The w.npy latent array."""
@@ -53,12 +46,12 @@ def get_latent_codes(data_dir: str, n: int = None) -> np.ndarray:
     return lats[:n] if n else lats
 
 
-def get_embs(args, pipeline: FacePipeline, lat_codes: np.ndarray
-             ) -> np.ndarray:
-    """Load cached gallery embeddings, or compute and cache them.
-    Reduced-resolution embeddings are not interchangeable with native
-    ones, so their default cache name says the synthesis resolution (an
-    explicit --embs-file is the user's responsibility)."""
+def get_embs(args, pipeline: FacePipeline, lat_codes: np.ndarray,
+             cache: bool = True) -> np.ndarray:
+    """Load cached gallery embeddings, or compute them and (``cache``)
+    cache them. Reduced-resolution embeddings are not interchangeable
+    with native ones, so their default cache name says the synthesis
+    resolution (an explicit --embs-file is the user's responsibility)."""
     log = args.LOGGER
     sr = (f"_sr{args.synthesis_resolution}"
           if args.synthesis_resolution else "")
@@ -72,9 +65,10 @@ def get_embs(args, pipeline: FacePipeline, lat_codes: np.ndarray
         t0 = time()
         embs = pipeline.lat2embs(lat_codes, chunk=max(args.batch_size, 32)
                                  ).float().cpu().numpy()
-        log.info(f"Embeddings done in {time() - t0:3.1f}s; "
-                 f"caching to {embs_file}")
-        np.savez(embs_file, embs=embs)
+        log.info(f"Embeddings done in {time() - t0:3.1f}s")
+        if cache:
+            log.info(f"Caching embeddings to {embs_file}")
+            np.savez(embs_file, embs=embs)
     assert embs.ndim == 2 and embs.shape[1] == EMB_SIZE, embs.shape
     assert len(embs) == len(lat_codes), \
         f"{len(embs)} embeddings vs {len(lat_codes)} latents"
@@ -83,13 +77,35 @@ def get_embs(args, pipeline: FacePipeline, lat_codes: np.ndarray
 
 def main(argv=None) -> None:
     args = opts.build_parser().parse_args(argv)
-    _reject_unported(args)
-    args = opts.finalize_args(args)
+    distributed = args.mesh or args.multihost
+    if distributed:
+        from ..parallel.mesh import init_distributed
+
+        coord = (args.coordinator_address, args.num_processes,
+                 args.process_id) if args.multihost else (None,) * 3
+        args.device = init_distributed(*coord, device=args.device)
+    try:
+        is_writer = not distributed or dist.get_rank() == 0
+        args = opts.finalize_args(args, writer=is_writer)
+        if distributed:
+            args.LOGGER.info(f"distributed: rank {dist.get_rank()} of "
+                             f"{dist.get_world_size()}, backend "
+                             f"{dist.get_backend()}")
+        _attack(args, is_writer)
+        if distributed:
+            dist.barrier()
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _attack(args, is_writer: bool) -> None:
     log = args.LOGGER
     t0 = time()
 
     if args.eval_files:
-        eval_files(args)
+        if is_writer:
+            eval_files(args)
         log.info(f"Total time: {time() - t0:3.1f}s")
         return
 
@@ -111,7 +127,7 @@ def main(argv=None) -> None:
                             resolution=syn_res, dtype=dtype, device=device)
     # a plain tensor, not an inference-mode one: the attack differentiates
     # against it
-    gallery = torch.as_tensor(get_embs(args, pipeline, lat_codes),
+    gallery = torch.as_tensor(get_embs(args, pipeline, lat_codes, is_writer),
                               device=pipeline.device)
     params = {"gen": pipeline.gen_params, "frm": pipeline.frm_params,
               "gallery": gallery}
@@ -121,13 +137,21 @@ def main(argv=None) -> None:
     dists_fn = make_dists_fn(args.face_recog_method, syn_res, dtype)
     attack_step = _make_attack_step(dists_fn, region, args)
     predict_fn = make_predict_fn(args.face_recog_method, syn_res, dtype)
-    for num_chunk in chunks_to_run:
-        log_file = eval_chunk(params, lat_codes, num_chunk, args,
-                              region=region, dists_fn=dists_fn,
-                              attack_step=attack_step, predict_fn=predict_fn)
-        log.info(f"Chunk log at {log_file}")
-    if args.num_chunk is None:
-        eval_files(args)
+    # in a process group rank 0 alone traces
+    tracing = args.profile_dir and is_writer
+    with (profiling.trace(args.profile_dir) if tracing
+          else contextlib.nullcontext()):
+        for num_chunk in chunks_to_run:
+            log_file = eval_chunk(params, lat_codes, num_chunk, args,
+                                  region=region, dists_fn=dists_fn,
+                                  attack_step=attack_step,
+                                  predict_fn=predict_fn)
+            if log_file is not None:
+                log.info(f"Chunk log at {log_file}")
+        if args.num_chunk is None and is_writer:
+            eval_files(args)
+    if tracing:
+        log.info(f"Trace written under {args.profile_dir}")
     log.info(f"Total time: {time() - t0:3.1f}s")
 
 

@@ -1,7 +1,5 @@
 """Attack CLI flags (port of certifyingfacerecognition_tpu/cli/opts.py):
-the same flags and defaults, plus --device. Flags of parts this port does
-not have yet exit with a message that names the ROADMAP item porting them
-(cli/main_attack.py)."""
+the same flags and defaults, plus --device."""
 
 from __future__ import annotations
 
@@ -86,7 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                         choices=["fp32", "bf16"],
                         help="Compute dtype of the pipeline")
     parser.add_argument("--mesh", action="store_true", default=False,
-                        help="not ported yet")
+                        help="Split each chunk's identity batches over the "
+                             "ranks of a process group, one process per "
+                             "device (torchrun, or --multihost); "
+                             "--batch-size is then the per-device batch")
     parser.add_argument("--autoattack-iters", type=int, default=100,
                         help="Per-attack iteration budget inside "
                              "--attack-type autoattack (set_version "
@@ -103,43 +104,47 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Run defense sanity checks before attacking "
                              "(autoattack checks.py equivalents)")
     parser.add_argument("--multihost", action="store_true", default=False,
-                        help="not ported yet")
+                        help="Join a torch.distributed process group from "
+                             "--coordinator-address, --num-processes and "
+                             "--process-id (one process per device); "
+                             "composes with --mesh")
     parser.add_argument("--coordinator-address", type=str, default=None,
-                        help="not ported yet")
-    parser.add_argument("--num-processes", type=int, default=None,
-                        help="not ported yet")
-    parser.add_argument("--process-id", type=int, default=None,
-                        help="not ported yet")
+                        help="host:port of process 0")
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="not ported yet")
+                        help="Capture a torch.profiler trace of the chunks "
+                             "into this directory")
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="device to run on (cuda needs a CUDA GPU)")
     return parser
 
 
-def finalize_args(args: argparse.Namespace) -> argparse.Namespace:
-    """Derived dirs and logger: exp_results/<out>/{results,logs,figs}."""
+def finalize_args(args: argparse.Namespace, writer: bool = True
+                  ) -> argparse.Namespace:
+    """Derived dirs and logger: exp_results/<out>/{results,logs,figs}.
+    writer=False (a rank other than 0 of a process group) derives the same
+    names but creates no directory and no file, and logs to stdout only."""
     args.output_dir = osp.join("exp_results", args.output_dir)
     args.lin_comb = not args.no_lin_comb
 
     args.results_dir = osp.join(args.output_dir, "results")
     args.logs_dir = osp.join(args.output_dir, "logs")
     args.figs_dir = osp.join(args.output_dir, "figs")
-    for d in (args.output_dir, args.results_dir, args.logs_dir,
-              args.figs_dir):
-        os.makedirs(d, exist_ok=True)
-
     chunk = "all" if args.num_chunk is None else args.num_chunk
     args.info_log = osp.join(args.output_dir, f"info_chunk_{chunk}.txt")
-    print_to_log(args2text(args), args.info_log)
-
+    if writer:
+        for d in (args.output_dir, args.results_dir, args.logs_dir,
+                  args.figs_dir):
+            os.makedirs(d, exist_ok=True)
+        print_to_log(args2text(args), args.info_log)
     args.final_results = osp.join(args.output_dir, "results.txt")
 
     # Logger names are process-global: qualify by output dir so different
     # experiments can run from one process.
     logger = setup_logger(
-        osp.join(args.output_dir, f"chunk_{chunk}"),
+        osp.join(args.output_dir, f"chunk_{chunk}") if writer else None,
         logger_name=f"{osp.basename(args.output_dir)}_chunk_{chunk}")
     logger.info(args2text(args))
     args.LOGGER = logger

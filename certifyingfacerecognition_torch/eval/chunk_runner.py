@@ -1,10 +1,13 @@
 """Attack workload runner: per-chunk attack loop and offline aggregation
-(port of certifyingfacerecognition_tpu/eval/chunk_runner.py, on one
-device).
+(port of certifyingfacerecognition_tpu/eval/chunk_runner.py).
 
   * each batch of identities is attacked with its own torch.Generator,
     seeded with the reference's per-batch seed seed + num_chunk *
     chunk_length + batch index;
+  * under --mesh or --multihost, batch j of a chunk runs on rank
+    j % world of the process group (rank_batches) and rank 0 gathers
+    every batch back into batch order (merge_rank_batches) before
+    anything below; the other ranks stop after the gather;
   * successful adversaries are re-verified from scratch (the deltas are
     re-applied, re-synthesised and re-classified by the exact predictor,
     in attack-sized zero-padded batches); mismatches are demoted with a
@@ -18,10 +21,11 @@ from __future__ import annotations
 import os.path as osp
 from functools import partial
 from time import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..attacks.autoattack import (AttackResult, find_adversaries_autoattack,
@@ -142,11 +146,53 @@ def _run_checks(params, chunk_lats, labels, dists_fn, region, log) -> None:
     run_all_checks(logits0, zeros, labels, grad_fn=grad_fn, logger=log)
 
 
+def _group():
+    """(world, rank) of the batch decomposition: the process group's when
+    one was joined (--mesh or --multihost), else (1, 0)."""
+    if dist.is_initialized():
+        return dist.get_world_size(), dist.get_rank()
+    return 1, 0
+
+
+def rank_batches(n_batches: int, world: int, rank: int) -> List[int]:
+    """The batches of a chunk that ``rank`` attacks: j with j % world ==
+    rank, in order."""
+    return list(range(rank, n_batches, world))
+
+
+def merge_rank_batches(per_rank: Sequence[Dict[int, object]],
+                       n_batches: int) -> List[object]:
+    """Every rank's {batch index: result} back in batch order; raises
+    unless the ranks cover batches 0..n_batches-1 exactly once."""
+    merged = {}
+    for part in per_rank:
+        if merged.keys() & part.keys():
+            raise ValueError(f"batches {sorted(merged.keys() & part.keys())} "
+                             "came from two ranks")
+        merged.update(part)
+    if sorted(merged) != list(range(n_batches)):
+        raise ValueError(f"ranks returned batches {sorted(merged)}, expected "
+                         f"0..{n_batches - 1}")
+    return [merged[j] for j in range(n_batches)]
+
+
+def _progress_line(parts) -> str:
+    """The cumulative per-batch log line over the (deltas, success,
+    magnitudes, labels) of the batches so far."""
+    mags = np.concatenate([p[2] for p in parts])
+    succ = np.concatenate([p[1] for p in parts])
+    avg = float(np.sqrt(mags[succ]).mean()) if succ.any() else 0.0
+    return (f"-> {int(succ.sum())} advs for {len(succ)} IDs "
+            f"-> avg. pert.: {avg:3.4f}")
+
+
 def eval_chunk(params: Dict, lat_codes: np.ndarray, num_chunk: int, args,
                region: G.RegionMatrices, dists_fn: Callable,
-               attack_step: Callable, predict_fn: Callable) -> str:
+               attack_step: Callable, predict_fn: Callable
+               ) -> Optional[str]:
     """Attack one chunk of identities; writes the log and data artifacts
-    and returns the log-file path."""
+    and returns the log-file path. In a process group only rank 0 writes and
+    returns the path; the other ranks return None after the gather."""
     device = params["gallery"].device
     start_time = time()
     log = args.LOGGER
@@ -161,36 +207,49 @@ def eval_chunk(params: Dict, lat_codes: np.ndarray, num_chunk: int, args,
 
     start = num_chunk * chunk_length
     chunk_lats = np.asarray(lat_codes[start:start + chunk_length], np.float32)
-    if args.run_checks:
+    world, rank = _group()
+    if args.run_checks and rank == 0:
         _run_checks(params, chunk_lats[:bs],
                     torch.arange(start, start + bs, device=device), dists_fn,
                     region, log)
 
-    deltas, successes, magnitudes, all_labels = [], [], [], []
-    tot = 0
-    for idx in range(0, chunk_length, bs):
+    n_batches = chunk_length // bs
+    if n_batches < world:
+        log.warning(f"chunk {num_chunk} has {n_batches} batch(es) of "
+                    f"--batch-size {bs} for {world} ranks, so "
+                    f"{world - n_batches} rank(s) get no batch: pick a "
+                    f"--batch-size of at most {chunk_length // world} to use "
+                    "every rank")
+    parts = {}
+    for j in rank_batches(n_batches, world, rank):
+        idx = j * bs
         batch = torch.as_tensor(chunk_lats[idx:idx + bs], device=device)
         labels = torch.arange(start + idx, start + idx + batch.shape[0],
                               device=device)
         gen = torch.Generator().manual_seed(
-            args.seed + num_chunk * chunk_length + idx // bs)
+            args.seed + num_chunk * chunk_length + j)
         res_deltas, res_success, res_mags = attack_step(params, batch,
                                                         labels, gen)
-        deltas.append(res_deltas.cpu().numpy())
-        successes.append(res_success.cpu().numpy())
-        magnitudes.append(res_mags.cpu().numpy())
-        all_labels.append(labels.cpu().numpy())
-        tot += batch.shape[0]
-        mags = np.concatenate(magnitudes)
-        succ = np.concatenate(successes)
-        avg = float(np.sqrt(mags[succ]).mean()) if succ.any() else 0.0
-        log.info(f"-> {int(succ.sum())} advs for {tot} IDs "
-                 f"-> avg. pert.: {avg:3.4f}")
+        parts[j] = tuple(t.cpu().numpy() for t in (res_deltas, res_success,
+                                                   res_mags, labels))
+        if world == 1:
+            log.info(_progress_line(list(parts.values())))
+    gathered = [parts]
+    if world > 1:
+        # every rank makes this one collective call per chunk, with or
+        # without batches of its own
+        gathered = [None] * world
+        dist.all_gather_object(gathered, parts)
+        if rank != 0:
+            return None
+    ordered = merge_rank_batches(gathered, n_batches)
+    if world > 1:
+        for k in range(1, n_batches + 1):
+            log.info(_progress_line(ordered[:k]))
 
-    deltas = np.concatenate(deltas)
-    successes = np.concatenate(successes)
-    magnitudes = np.concatenate(magnitudes)
-    all_labels = np.concatenate(all_labels)
+    deltas, successes, magnitudes, all_labels = (
+        np.concatenate(col) for col in zip(*ordered))
+    tot = len(all_labels)
     log.info(f"Finished chunk computation. Time={time() - start_time:3.2f}s")
 
     n_succ = int(successes.sum())

@@ -159,19 +159,13 @@ def synthesis_apply(params: Dict, wp: torch.Tensor, *, resolution: int,
     channels = RESOLUTIONS_TO_CHANNELS[resolution]
     syn = params["synthesis"]
     wp = wp.to(dtype)
-    B = wp.shape[0]
     n_blocks = len(channels) - 1
     bc_first = _bc_first_block(resolution, dtype)
     if cb_out and bc_first > n_blocks:
         raise ValueError("cb_out needs the chain tail (see cb_out_active)")
 
-    p0 = syn["layer0"]
-    x = _chw(p0["const"].to(dtype)).expand(B, -1, -1, -1)
-    x = _epilogue(p0, x, wp[:, 0], dtype=dtype)
-
-    for block_idx in range(1, min(len(channels), bc_first)):
-        x = _remat(lambda x, wp, bi=block_idx: _synthesis_block(
-            syn, x, wp, block_idx=bi, dtype=dtype), x, wp)
+    x = synthesis_prefix(params, wp, resolution=resolution, dtype=dtype,
+                         stop=bc_first)
 
     if bc_first <= n_blocks:
         return _synthesis_tail_bc(syn, x, wp, bc_first=bc_first,
@@ -182,6 +176,26 @@ def synthesis_apply(params: Dict, wp: torch.Tensor, *, resolution: int,
     scale = 1.0 / math.sqrt(x.shape[1])
     img = nn.conv2d(x, po["conv_weight"].to(dtype), padding=0) * scale
     return img + po["bias"].to(dtype)[None, :, None, None]
+
+
+def synthesis_prefix(params: Dict, wp: torch.Tensor, *, resolution: int,
+                     dtype=torch.float32, stop: Optional[int] = None
+                     ) -> torch.Tensor:
+    """The plain-ops head of synthesis_apply: layer0 and blocks
+    1..stop-1 (block bi outputs 2^(bi+1); ``stop`` defaults to the chain
+    boundary), the NCHW activation of the last of them."""
+    channels = RESOLUTIONS_TO_CHANNELS[resolution]
+    syn = params["synthesis"]
+    wp = wp.to(dtype)
+    if stop is None:
+        stop = _bc_first_block(resolution, dtype)
+    p0 = syn["layer0"]
+    x = _chw(p0["const"].to(dtype)).expand(wp.shape[0], -1, -1, -1)
+    x = _epilogue(p0, x, wp[:, 0], dtype=dtype)
+    for block_idx in range(1, min(len(channels), stop)):
+        x = _remat(lambda x, wp, bi=block_idx: _synthesis_block(
+            syn, x, wp, block_idx=bi, dtype=dtype), x, wp)
+    return x
 
 
 def _synthesis_tail_bc(syn: Dict, x: torch.Tensor, wp: torch.Tensor, *,

@@ -11,12 +11,14 @@ from __future__ import annotations
 import logging
 import os
 import sys
+from typing import Optional
 
 
-def setup_logger(work_dir: str, logger_name: str,
+def setup_logger(work_dir: Optional[str], logger_name: str,
                  allow_existing: bool = False) -> logging.Logger:
     """A logger writing INFO to stdout and DEBUG to work_dir/log.txt;
-    allow_existing=True appends to an existing log.txt."""
+    allow_existing=True appends to an existing log.txt. With work_dir
+    None it writes to stdout only (a rank that writes no files)."""
     logger = logging.getLogger(logger_name)
     # Check the logger's OWN handlers, not hasHandlers(): that walks up to
     # the root logger and would trip on unrelated root handlers (pytest's
@@ -32,6 +34,8 @@ def setup_logger(work_dir: str, logger_name: str,
     sh.setLevel(logging.INFO)
     sh.setFormatter(formatter)
     logger.addHandler(sh)
+    if work_dir is None:
+        return logger
 
     os.makedirs(work_dir, exist_ok=True)
     log_path = os.path.join(work_dir, "log.txt")

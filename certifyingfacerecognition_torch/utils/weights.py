@@ -62,9 +62,13 @@ def unflatten_params(flat: Dict[str, np.ndarray]) -> Dict:
 
 
 def to_torch(tree, device, dtype=torch.float32):
-    """numpy tree -> tensor tree on ``device``; floating leaves in dtype."""
+    """numpy tree -> tensor tree on ``device``; floating leaves in dtype.
+    Every leaf is a C-contiguous copy: a transposed array would otherwise
+    keep its strides, and the convolutions round differently on weights of
+    another layout, so a tree would compute differently by the route it
+    was loaded by."""
     def leaf(a):
-        t = torch.from_numpy(np.array(a))
+        t = torch.from_numpy(np.array(a, order="C"))
         if t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)

@@ -57,7 +57,14 @@ Runs straight through and raises (exit code != 0) on any failure:
    through the chain kernels, on plain bf16 and in fp32, PGGAN in bf16
    and fp32; codes, images and PNGs checked (check_generation);
 11. ``cfr-certify-torch --mesh`` on a one-rank NCCL group in this
-   process, each TSV equal to phase 5's (check_mesh).
+   process, each TSV equal to phase 5's (check_mesh);
+12. ``cfr-attack-torch --mesh`` on a one-rank NCCL group (artifacts equal
+   phase 7's), ``--profile-dir`` on phase 9's apgd-ce run (the trace
+   names the chain kernels; its top device operations printed), and the
+   tools: tail_kernel_bench beside phase 4, gallery_bench's stage split
+   of a certify batch (refine equal to predict_fn), pkl_converter and
+   validate_conversion on a synthetic 1024^2 snapshot (bit-equal images
+   through the chain kernels), certified_curve over phase 5's TSV.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -496,30 +503,13 @@ def library_call(name, a):
 
 def bound(name, h, ci, co, b):
     """(bound_ms, bytes ms, operations ms, bytes read, bytes written) of
-    one launch: the least time for the bytes the kernel must move (inputs
-    read once, outputs written once; bf16 activations, nb and packed
-    weights, f32 affines, coefs and sums as the kernel takes them) and for
-    its MACs on the bf16 tensor cores (the up layer's transposed conv does
-    2x2 taps per output). A standalone pass reads no input affine; a stats
-    pass writes only its sums."""
-    up = name.startswith("up")
-    out_hw = (2 * h) ** 2 if up else h * h
-    read = h * h * ci * b * 2 + (16 if up else 9) * ci * co * 2 \
-        + out_hw * co * 2 + (2 * ci * b * 4 if name in CHAIN else 0)
-    sums = 2 * co * b * 4
-    write = {"up_fused": out_hw * co * b * 2 + sums,
-             "conv_fused": out_hw * co * b * 2 + sums,
-             "final_stats": sums, "conv_stats": sums, "up_stats": sums,
-             "conv_apply": out_hw * co * b * 2,
-             "up_apply": out_hw * co * b * 2,
-             "final_apply": 3 * out_hw * b * 2,
-             "conv_rgb_apply": 3 * out_hw * b * 2}[name]
-    flops = 2.0 * out_hw * b * (4 if up else 9) * ci * co
-    if name.endswith("apply"):
-        read += 2 * co * b * 4                       # the coefs
-    if name in ("final_apply", "conv_rgb_apply"):
-        read += co * 3 * 4 + 3 * 4
-        flops += 2.0 * out_hw * b * co * 3
+    one bf16 launch: the least time for the bytes the kernel must move
+    (inputs read once, outputs written once) and for its MACs on the bf16
+    tensor cores, as tools/tail_kernel_bench.kernel_cost counts them."""
+    from certifyingfacerecognition_torch.tools.tail_kernel_bench import \
+        kernel_cost
+
+    read, write, flops = kernel_cost(name, h, ci, co, b)
     t_bytes = (read + write) / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_BF16 * 1e3
     return max(t_bytes, t_ops), t_bytes, t_ops, read, write
@@ -549,6 +539,7 @@ def time_kernels(bc, gen, gpu, b=128):
         r["plain_ms"] += plain_ms
         r["library_ms"] += library_ms
         r["bound_ms"] += bms
+        r.setdefault("ms_by_h", {})[h] = ms
         r["t_bytes"] += tb
         r["t_ops"] += to
         del a
@@ -909,10 +900,11 @@ def check_facenet(main, bc, root, w, gen_params, gpu):
     return bc_launches
 
 
-def attack_run(main, data, frm_path, out, tail, load_embs):
+def attack_run(main, data, frm_path, out, tail, load_embs, extra=()):
     """One cfr-attack-torch run (PGD, 1024^2, bf16, one chunk of
     ATTACK_IDS identities at batch ATTACK_IDS, 1 restart x 3 iterations,
-    --scale-factor ATTACK_SCALE); returns its wall time in seconds."""
+    --scale-factor ATTACK_SCALE, then ``extra``); returns its wall time in
+    seconds."""
     os.environ["CFR_TAIL"] = tail
     t0 = time.time()
     main(["--output-dir", out, "--data-dir", data, "--attack-type",
@@ -921,7 +913,7 @@ def attack_run(main, data, frm_path, out, tail, load_embs):
           "--batch-size", str(ATTACK_IDS), "--restarts", "1", "--iters", "3",
           "--gen-weights", "random:0", "--frm-weights", frm_path,
           "--scale-factor", str(ATTACK_SCALE), "--seed", "0"]
-         + (["--load-embs"] if load_embs else []))
+         + (["--load-embs"] if load_embs else []) + list(extra))
     torch.cuda.synchronize()
     return time.time() - t0
 
@@ -1392,6 +1384,351 @@ def check_mesh(main, bc, root, frm_path, rows_bc, gpu):
         + ", ".join(f"{k} {v:.3f}" for k, v in per_id.items()) + f" [{gpu}]")
 
 
+# Phase 12: the attack CLI's --mesh and --profile-dir, and the measurement
+# and weight tools (certifyingfacerecognition_torch/tools)
+def check_attack_mesh(main, bc, data, frm_path, secs_bc, gpu):
+    """Phase 12 (cwd: the attack runs' root): phase 7's CFR_TAIL=bc run
+    again with --mesh, in this process as a one-rank NCCL group
+    (torchrun's variables: MASTER_ADDR=localhost, a free MASTER_PORT,
+    WORLD_SIZE=1, RANK=0), on phase 7's gallery. The backend must be
+    NCCL, all four chain counters must rise, and the chunk's npz (deltas,
+    successes, magnitudes) and log must equal phase 7's. One rank runs
+    the whole path of --mesh (the batch assignment, the all-gather of the
+    batches, rank 0's re-verification and writing) over a group of one;
+    several ranks need several GPUs, since NCCL does not put two ranks on
+    one GPU (the multi-rank run is tests/test_torch_attack_mesh.py's
+    2-process gloo run)."""
+    env = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+                      WORLD_SIZE="1", RANK="0")
+    bc.reset_launches()
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            secs = attack_run(main, data, frm_path, "atk_mesh", "bc",
+                              load_embs=True, extra=["--mesh"])
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    for line in buf.getvalue().splitlines():
+        log(line)
+    launches = chain_launches(bc)
+    log(f"attack --mesh launches: {launches}")
+    if "distributed: rank 0 of 1, backend nccl" not in buf.getvalue():
+        raise AssertionError("attack --mesh did not run on a one-rank NCCL "
+                             "group")
+    if not all(launches.values()):
+        raise AssertionError(f"chain kernels not launched: {launches}")
+    want, got = (os.path.join("exp_results", out) for out in ("atk_bc",
+                                                              "atk_mesh"))
+    log_name = os.path.join("logs", "results_chunk0of1.txt")
+    if open(os.path.join(got, log_name)).read() != \
+            open(os.path.join(want, log_name)).read():
+        raise AssertionError("attack --mesh: the chunk log differs from "
+                             "phase 7's")
+    npz = os.path.join("results", "results_chunk0of1.npz")
+    if os.path.exists(os.path.join(want, npz)):
+        with np.load(os.path.join(want, npz)) as a, \
+                np.load(os.path.join(got, npz)) as b:
+            for k in ("deltas", "successes", "magnitudes"):
+                if not np.array_equal(a[k], b[k]):
+                    raise AssertionError(f"attack --mesh: {k} differ from "
+                                         f"phase 7's")
+    elif os.path.exists(os.path.join(got, npz)):
+        raise AssertionError("attack --mesh saved adversaries, phase 7 none")
+    log(f"attack --mesh (one NCCL rank) 1024^2 bf16 chain tail, "
+        f"{ATTACK_IDS} identities, 1 restart x 3 iterations: {secs:.1f} s "
+        f"for the whole run with the gallery loaded, {secs / 3:.2f} s per "
+        f"iteration set-up included (phase 7's bc run, which computed the "
+        f"gallery: {secs_bc:.1f} s); artifacts equal phase 7's [{gpu}]")
+
+
+def check_attack_profile(main, bc, data, frm_path, gpu):
+    """Phase 12 (cwd: the attack runs' root): phase 9's apgd-ce run again
+    with --profile-dir. The trace file must exist, its kernel events must
+    name the chain kernels' CUDA functions (up_kernel, conv3x3_kernel),
+    and all four chain counters must rise. Prints the five device
+    operations with the most total time, and the kernels' summed time
+    over the span from the first kernel's start to the last one's end."""
+    prof_dir = os.path.abspath("attack_trace")
+    bc.reset_launches()
+    os.environ["CFR_TAIL"] = "bc"
+    t0 = time.time()
+    main(["--output-dir", "aa_profile", "--data-dir", data, "--attack-type",
+          "apgd-ce", "--face-recog-method", "insightface", "--dtype", "bf16",
+          "--resolution", "1024", "--chunks", str(ATTACK_IDS // AA_IDS),
+          "--num-chunk", "0", "--gen-weights", "random:0", "--frm-weights",
+          frm_path, "--scale-factor", str(ATTACK_SCALE), "--seed", "0",
+          "--load-embs", *AA_FLAGS, "--profile-dir", prof_dir])
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = chain_launches(bc)
+    if not all(launches.values()):
+        raise AssertionError(f"chain kernels not launched: {launches}")
+    traces = [f for f in os.listdir(prof_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"--profile-dir wrote {traces}")
+    path = os.path.join(prof_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    total = {}
+    for e in kernels:
+        total[e["name"]] = total.get(e["name"], 0.0) + e["dur"] / 1e3
+    for want in ("up_kernel", "conv3x3_kernel"):
+        if not any(want in name for name in total):
+            raise AssertionError(f"the trace names no {want} kernel (it "
+                                 f"names {len(total)} kernels)")
+    busy = sum(total.values())
+    span = (max(e["ts"] + e["dur"] for e in kernels)
+            - min(e["ts"] for e in kernels)) / 1e3
+    log(f"attack apgd-ce --profile-dir: {secs:.1f} s for the whole run "
+        f"traced, trace {os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+        f"{len(kernels)} kernel launches, kernels busy {busy:.1f} ms of a "
+        f"{span:.1f} ms span ({100 * busy / span:.1f} %); launches "
+        f"{launches} [{gpu}]")
+    for name, ms in sorted(total.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"  top device op {ms:9.1f} ms ({100 * ms / busy:4.1f} % of "
+            f"kernel time) {name[:150]}")
+    groups = {}
+    for e in kernels:
+        g = groups.setdefault(_kernel_group(e["name"]), [0, 0.0])
+        g[0] += 1
+        g[1] += e["dur"] / 1e3
+    for g, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        log(f"  kernel group {g:34s} {ms:9.1f} ms ({100 * ms / busy:4.1f} "
+            f"%), {n} launches")
+
+
+def _kernel_group(name):
+    """The family of a CUDA kernel's name in a trace."""
+    low = name.lower()
+    if "up_kernel" in name or "conv3x3_kernel" in name:
+        return "chain kernels (csrc)"
+    if any(t in low for t in ("cudnn", "xmma", "cutlass", "gemm", "conv")):
+        return "cuDNN / cuBLAS convolutions, GEMMs"
+    if "elementwise" in low:
+        return "PyTorch elementwise"
+    if "reduce" in low:
+        return "PyTorch reductions"
+    return "other"
+
+
+def _json_lines(fn, argv):
+    """Run a tool's main(argv); its standard output's JSON lines."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def check_tail_bench(timing, gpu):
+    """Phase 12: tools/tail_kernel_bench at B = 128 for up512, conv512,
+    up1024 and rgb1024 (outputs finite), each layer's ms and ms / bound
+    beside phase 4's ms of the same launches (phase 4: median of 5;
+    the tool: best of 5)."""
+    from certifyingfacerecognition_torch.tools import tail_kernel_bench
+
+    by_h = {k: timing[k]["ms_by_h"] for k in CHAIN}
+    phase4 = {"up512": by_h["up_fused"][256],
+              "conv512": by_h["conv_fused"][512],
+              "up1024": by_h["up_fused"][512],
+              "rgb1024": by_h["final_stats"][1024] + by_h["final_apply"][1024]}
+    recs = _json_lines(tail_kernel_bench.main,
+                       ["--batch", "128", "--layers", ",".join(phase4)])
+    assert [r["layer"] for r in recs] == list(phase4), recs
+    for r in recs:
+        if not r["finite"]:
+            raise AssertionError(f"tail_kernel_bench {r['layer']}: outputs "
+                                 f"not finite")
+        log(f"tail_kernel_bench {r['layer']:8s} B={r['batch']} bf16: "
+            f"{r['ms']:.3f} ms, "
+            f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), "
+            f"{r['x_bound']:.1f}x the bound; phase 4 {phase4[r['layer']]:.3f} "
+            f"ms [{gpu}]")
+
+
+GALLERY_ARGV = ["--gallery", "100000", "--batch", "128", "--resolution",
+                "1024", "--stages",
+                "pre,synth,resize,embed,matmul,topk,refine", "--reps", "3",
+                "--injit", "2"]
+
+
+def check_gallery_bench(timing, gpu):
+    """Phase 12: tools/gallery_bench with CFR_TAIL=bc at a gallery of
+    100000, batch 128, 1024^2: every stage's ms and delta printed;
+    ``refine``'s winners must equal the port's predict_fn on the same
+    latents and gallery, and the ``synth`` - ``pre`` delta must lie
+    within 0.5-2x the sum of phase 4's chain-kernel ms (a sanity check
+    on what the tool measures)."""
+    from certifyingfacerecognition_torch.eval.chunk_runner import \
+        make_predict_fn
+    from certifyingfacerecognition_torch.tools import gallery_bench as GB
+
+    os.environ["CFR_TAIL"] = "bc"
+    gallery, w0 = GB.bench_inputs(100000, 128, "cuda")
+    gen, frm = GB.bench_weights(1024, "cuda")
+    got = GB.make_stages(gen, frm, gallery, 1024, torch.bfloat16,
+                         "cuda")["refine"](w0)
+    want = make_predict_fn("insightface", 1024, torch.bfloat16)(
+        {"gen": gen, "frm": frm, "gallery": gallery}, w0)
+    if not torch.equal(got, want):
+        raise AssertionError("gallery_bench refine's winners differ from "
+                             "predict_fn's")
+    log(f"gallery_bench refine: winners equal predict_fn's "
+        f"({len(set(got.tolist()))} distinct of {len(got)})")
+    del gallery, w0, gen, frm, got, want
+    torch.cuda.empty_cache()
+
+    recs = _json_lines(GB.main, GALLERY_ARGV)
+    for r in recs:
+        log(f"gallery_bench {r['stage']:7s} {r['ms_per_batch']:9.3f} ms per "
+            f"batch, delta {r['delta_ms']:9.3f} ms, "
+            f"{r['samples_per_sec']:.1f} samples/s [{gpu}]")
+    delta = {r["stage"]: r["delta_ms"] for r in recs}["synth"]
+    chain = sum(timing[k]["ms"] for k in CHAIN)
+    log(f"gallery_bench synth - pre {delta:.3f} ms vs phase 4's chain "
+        f"kernels {chain:.3f} ms: ratio {delta / chain:.3f}")
+    if not 0.5 <= delta / chain <= 2.0:
+        raise AssertionError("gallery_bench's synth - pre is outside 0.5-2x "
+                             "the chain kernels' time")
+
+
+def torch_sd_to_tf_vars(pc, sd, resolution):
+    """The TF-side variables of a torch-style StyleGAN state dict: the
+    inverse of tools/pkl_converter's relayout."""
+    tf_vars = {}
+    for torch_name, tf_name in pc.stylegan_tf_to_torch_names(resolution):
+        var = np.asarray(sd[torch_name], np.float32)
+        if "linear.weight" in torch_name:
+            var = var.T
+        elif torch_name.endswith("conv.weight"):
+            var = var.transpose(2, 3, 1, 0)          # OIHW -> HWIO
+        if torch_name == "synthesis.layer0.first_layer":
+            var = var[0]
+        if tf_name.startswith("noise"):
+            var = var.reshape(1, *var.shape[-2:], 1)  # NHWC TF noise
+        tf_vars[tf_name] = var
+    return tf_vars
+
+
+def write_fake_official_pkl(path, tf_vars):
+    """An official-style (G, D, Gs) snapshot of fake dnnlib Network
+    objects: a stale G of zeros, the Dense* variables in a mapping
+    component of Gs."""
+    import pickle
+    import types
+
+    mods = {m: types.ModuleType(m) for m in ("dnnlib", "dnnlib.tflib",
+                                             "dnnlib.tflib.network")}
+
+    class Network:
+        def __init__(self, variables, components=None):
+            self.variables = variables
+            self.components = components or {}
+
+        def __getstate__(self):
+            return {"version": 3, "variables": self.variables,
+                    "components": self.components}
+
+    Network.__module__ = "dnnlib.tflib.network"
+    Network.__qualname__ = "Network"
+    mods["dnnlib.tflib.network"].Network = Network
+    sys.modules.update(mods)
+    try:
+        items = sorted(tf_vars.items())
+        mapping = Network([(k, v) for k, v in items if "Dense" in k])
+        stale = Network([(k, np.zeros_like(v)) for k, v in items[:4]])
+        gs = Network([(k, v) for k, v in items if "Dense" not in k],
+                     components={"mapping": mapping})
+        with open(path, "wb") as f:
+            pickle.dump((stale, None, gs), f, protocol=2)
+    finally:
+        for m in mods:
+            sys.modules.pop(m, None)
+
+
+def check_pkl(bc, root, w, gpu):
+    """Phase 12: a synthetic official-style StyleGAN pkl at 1024^2 and
+    full width (random_torch_style_state_dict(1024, seed=4)), converted
+    by tools/pkl_converter; 4 identities (phase 5's latents) synthesized
+    in bf16 through the chain kernels from it and from the state-dict
+    route (load_generator_params of convert_state_dict_np's .npz) must be
+    bit-equal, with all four chain counters rising in both; then
+    tools/validate_conversion --allow-unknown-pkl must return 0 with
+    OK_NO_TORCH_ORACLE."""
+    from certifyingfacerecognition_torch.models import stylegan
+    from certifyingfacerecognition_torch.tools import pkl_converter as PC
+    from certifyingfacerecognition_torch.tools import validate_conversion
+    from certifyingfacerecognition_torch.utils import weights as W
+
+    t0 = time.time()
+    sd = stylegan.random_torch_style_state_dict(1024, seed=4)
+    pkl = os.path.join(root, "fake-stylegan-1024.pkl")
+    write_fake_official_pkl(pkl, torch_sd_to_tf_vars(PC, sd, 1024))
+    paths = {"pkl": os.path.join(root, "from_pkl.npz"),
+             "state dict": os.path.join(root, "from_sd.npz")}
+    PC.main([pkl, paths["pkl"], "1024", "stylegan"])
+    W.save_params(paths["state dict"],
+                  stylegan.convert_state_dict_np(sd, 1024))
+    os.environ["CFR_TAIL"] = "bc"
+    wt = torch.as_tensor(w, device="cuda")
+    imgs = {}
+    for tag, path in paths.items():
+        gen = W.load_generator_params(path, resolution=1024, device="cuda")
+        bc.reset_launches()
+        with torch.inference_mode():
+            imgs[tag] = stylegan.synthesize_from_w(gen, wt, resolution=1024,
+                                                   dtype=torch.bfloat16)
+        launches = chain_launches(bc)
+        if not all(launches.values()):
+            raise AssertionError(f"pkl phase ({tag}): chain kernels not "
+                                 f"launched: {launches}")
+    img = imgs["pkl"]
+    assert img.shape == (4, 3, 1024, 1024) and torch.isfinite(img).all()
+    if not torch.equal(img, imgs["state dict"]):
+        raise AssertionError("images from the converted pkl differ from the "
+                             "state-dict route's")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = validate_conversion.main(["--pkl", pkl, "--allow-unknown-pkl",
+                                       "--resolution", "1024",
+                                       "--test-num", "4"])
+    verdict = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"validate_conversion: rc {rc}, {verdict}")
+    if rc != 0 or verdict["status"] != "OK_NO_TORCH_ORACLE" or \
+            verdict["output_shape"] != [4, 3, 1024, 1024]:
+        raise AssertionError("validate_conversion did not pass")
+    log(f"pkl_converter 1024^2: {len(sd)} state-dict entries, bf16 "
+        f"chain-tail images bit-equal to the state-dict route's; "
+        f"{time.time() - t0:.1f} s [{gpu}]")
+
+
+def check_certified_curve(root):
+    """Phase 12: tools/certified_curve over phase 5's bc.tsv: the CSV is
+    written, and its certified accuracy at radius 0 is the TSV's share of
+    rows with correct == 1."""
+    import csv
+
+    from certifyingfacerecognition_torch.tools import certified_curve
+
+    tsv, out = (os.path.join(root, n) for n in ("bc.tsv", "curve.csv"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        certified_curve.main([tsv, "-o", out, "--radii", "0:1:0.25"])
+    with open(out) as f:
+        rows = list(csv.reader(f))
+    with open(tsv) as f:
+        correct = [r["correct"] == "1" for r in csv.DictReader(f,
+                                                              delimiter="\t")]
+    log(f"certified_curve over phase 5's bc.tsv: {rows}")
+    assert rows[0] == ["radius", "bc.tsv"] and rows[1][0] == "0", rows
+    assert len(rows) == 6
+    if abs(float(rows[1][1]) - float(np.mean(correct))) > 1e-6:
+        raise AssertionError("certified accuracy at radius 0 is not the "
+                             "share of correct rows")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1531,6 +1868,24 @@ def main() -> int:
 
         check_generation(generate_data.main, bc, root, gpu)
         check_mesh(certify.main, bc, root, frm_path, rows, gpu)
+
+        t12 = time.time()
+        os.chdir(root)
+        try:
+            check_attack_mesh(main_attack.main, bc, data, frm_atk, secs_bc,
+                              gpu)
+            torch.cuda.empty_cache()
+            check_attack_profile(main_attack.main, bc, data, frm_atk, gpu)
+        finally:
+            os.chdir(cwd)
+        torch.cuda.empty_cache()
+        check_tail_bench(timing, gpu)
+        torch.cuda.empty_cache()
+        check_gallery_bench(timing, gpu)
+        torch.cuda.empty_cache()
+        check_pkl(bc, root, w, gpu)
+        check_certified_curve(root)
+        log(f"phase 12: {time.time() - t12:.1f} s")
 
     records = []
     for name in CHAIN + STANDALONE:

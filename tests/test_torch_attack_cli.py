@@ -23,8 +23,10 @@ every embedding to NaN).
   every saved success re-verified by the port's exact predictor, the
   bounded attacks' deltas feasible, the check battery's result;
   --attack-type fab raises the JAX package's NotImplementedError.
-* The flags of unported parts exit with a message naming their ROADMAP
-  item.
+* The flags that the port once refused: --mesh and --multihost (with
+  --coordinator-address, --num-processes, --process-id) parse to the JAX
+  parser's values and defaults, and --profile-dir writes a torch.profiler
+  trace of the file's tiny in-process attack under its directory.
 
 Torch runs one intra-op thread per process: the suite runs in several
 pytest-xdist workers that share the machine's cores."""
@@ -264,9 +266,33 @@ def test_fab_untargeted_raises_as_jax(data_dir, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [
     ["--mesh"], ["--multihost"], ["--profile-dir", "trace"]])
-def test_unported_flags_raise(tmp_path, monkeypatch, flag):
+def test_unported_flags_raise(data_dir, tmp_path, monkeypatch, flag):
+    """Named for the refusal these three flags met before the port had
+    parallel runs and profiling: now the group flags parse as the JAX
+    CLI's (defaults included), and --profile-dir traces the attack."""
+    from certifyingfacerecognition_tpu.cli import opts as jopts
+
+    from certifyingfacerecognition_torch.cli import opts as topts
+
+    names = ("mesh", "multihost", "coordinator_address", "num_processes",
+             "process_id", "profile_dir")
+    if flag[0] != "--profile-dir":
+        group = ["--coordinator-address", "localhost:1234",
+                 "--num-processes", "2", "--process-id", "1"]
+        for argv in (["--output-dir", "x"],
+                     ["--output-dir", "x"] + flag + group):
+            want = jopts.build_parser().parse_args(argv)
+            got = topts.build_parser().parse_args(argv)
+            assert [getattr(got, n) for n in names] == \
+                [getattr(want, n) for n in names]
+        assert getattr(got, flag[0][2:]) is True
+        return
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        tmain.main(["--output-dir", "x", "--data-dir", str(tmp_path)]
-                   + flag)
-    assert not osp.exists("exp_results")
+    tmain.main(["--output-dir", "prof", "--num-chunk", "0"]
+               + _common(data_dir) + flag)
+    traces = [f for f in os.listdir("trace") if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1, os.listdir("trace")
+    text = open(osp.join("trace", traces[0])).read()
+    assert "aten::conv2d" in text and "traceEvents" in text
+    assert osp.isfile(osp.join("exp_results", "prof", "logs",
+                               "results_chunk0of2.txt"))

@@ -36,4 +36,8 @@ def test_scan_covers_the_port():
     assert {"chip_smoke.py", "synthesis_tail_bc.py", "certify.py",
             "stylegan.py", "main_attack.py", "pgd.py", "geometry.py",
             "pggan.py", "generate_data.py", "manipulator.py", "png.py",
-            "mesh.py", "gallery.py"} <= names
+            "mesh.py", "gallery.py", "profiling.py", "tail_kernel_bench.py",
+            "gallery_bench.py", "pkl_converter.py", "validate_conversion.py",
+            "certified_curve.py"} <= names
+    assert ROOT / "certifyingfacerecognition_torch" / "tools" / \
+        "pkl_converter.py" in FILES
