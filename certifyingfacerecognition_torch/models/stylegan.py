@@ -379,14 +379,45 @@ def convert_torch_state_dict(sd: Dict[str, np.ndarray], resolution: int,
                     resolve_device(device))
 
 
+# Blocks at or below this resolution keep full spectral randomness under
+# spectral_gamma shaping; above it, high-frequency kernel content and noise
+# amplitude scale per octave (see random_torch_style_state_dict).
+SPECTRAL_BASE_RES = 32
+
+
 def random_torch_style_state_dict(resolution: int, seed: int = 0,
-                                  realistic: bool = False
+                                  realistic: bool = False,
+                                  spectral_gamma: float = 0.0
                                   ) -> Dict[str, np.ndarray]:
     """A random state dict with the reference's key naming and shapes, drawn
     in the JAX package's numpy RNG call order (so both packages get the
     same arrays from one seed). realistic=True gives the mapping network
-    trained-like equalised-lr magnitudes."""
+    trained-like equalised-lr magnitudes.
+
+    spectral_gamma != 0 shapes the output's power spectrum (the PSD-matched
+    proxy weights, calibrated by tools/spectral_study): for a block of
+    output resolution r, every 3x3 conv kernel becomes
+    ``mean(k) + beta (k - mean(k))`` around its spatial mean and the
+    layer's noise amplitude is scaled by beta, with
+    ``beta = (SPECTRAL_BASE_RES / r) ** spectral_gamma`` clipped to
+    [1/8, 8]. Positive gamma steepens the spectrum, negative flattens it.
+    The shaping changes values after the draw, so the RNG stream, and
+    spectral_gamma=0's arrays, stay as they are."""
     rng = np.random.default_rng(seed)
+
+    def beta_for(res: int) -> float:
+        if not spectral_gamma:
+            return 1.0
+        b = (SPECTRAL_BASE_RES / max(res, SPECTRAL_BASE_RES)
+             ) ** spectral_gamma
+        return float(np.clip(b, 1.0 / 8.0, 8.0))
+
+    def shape_conv(w: np.ndarray, spatial_axes, res: int) -> np.ndarray:
+        b = beta_for(res)
+        if b == 1.0:
+            return w
+        m = w.mean(axis=spatial_axes, keepdims=True)
+        return m + b * (w - m)
 
     channels = RESOLUTIONS_TO_CHANNELS[resolution]
     sd = {}
@@ -410,7 +441,7 @@ def random_torch_style_state_dict(resolution: int, seed: int = 0,
         sd[f"{pre}.epilogue.apply_noise.noise"] = rng.standard_normal(
             (1, 1, res, res)).astype(np.float32)
         sd[f"{pre}.epilogue.apply_noise.weight"] = rng.standard_normal(
-            out_ch).astype(np.float32) * 0.1
+            out_ch).astype(np.float32) * 0.1 * beta_for(res)
         sd[f"{pre}.epilogue.bias"] = rng.standard_normal(
             out_ch).astype(np.float32) * 0.1
         sd[f"{pre}.epilogue.style_mod.dense.linear.weight"] = \
@@ -421,11 +452,11 @@ def random_torch_style_state_dict(resolution: int, seed: int = 0,
             sd[f"{pre}.first_layer"] = rng.standard_normal(
                 (1, channels[0], 4, 4)).astype(np.float32)
         elif li % 2 == 0 and is_fused_layer(li):
-            sd[f"{pre}.weight"] = rng.standard_normal(
-                (3, 3, in_ch, out_ch)).astype(np.float32)
+            sd[f"{pre}.weight"] = shape_conv(rng.standard_normal(
+                (3, 3, in_ch, out_ch)).astype(np.float32), (0, 1), res)
         else:
-            sd[f"{pre}.conv.weight"] = rng.standard_normal(
-                (out_ch, in_ch, 3, 3)).astype(np.float32)
+            sd[f"{pre}.conv.weight"] = shape_conv(rng.standard_normal(
+                (out_ch, in_ch, 3, 3)).astype(np.float32), (2, 3), res)
 
     for oi in range(len(channels) - 1):
         ch = channels[oi + 1]
@@ -437,7 +468,8 @@ def random_torch_style_state_dict(resolution: int, seed: int = 0,
 
 
 def random_params(resolution: int, seed: int = 0, realistic: bool = False,
-                  device="cuda") -> Dict:
+                  device="cuda", spectral_gamma: float = 0.0) -> Dict:
     return convert_torch_state_dict(
-        random_torch_style_state_dict(resolution, seed, realistic=realistic),
+        random_torch_style_state_dict(resolution, seed, realistic=realistic,
+                                      spectral_gamma=spectral_gamma),
         resolution, device=device)

@@ -194,7 +194,7 @@ def main(argv=None):
                    help="cuda needs a CUDA GPU")
     args = p.parse_args(argv)
 
-    from ..utils.device import resolve_device
+    from ..utils.device import device_name, resolve_device
 
     device = resolve_device(args.device)
     gallery, w0 = bench_inputs(args.gallery, args.batch, device)
@@ -202,8 +202,7 @@ def main(argv=None):
                          args.resolution, torch.bfloat16, device,
                          pre_res=args.pre_res)
     names = list(STAGES) if args.stages == "all" else args.stages.split(",")
-    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
+    kind = device_name(device)
     prev = 0.0
     for name in names:
         ms = time_stage(stages[name], w0, args.injit, args.reps)

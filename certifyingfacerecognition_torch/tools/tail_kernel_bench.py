@@ -39,6 +39,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
+from ..utils.device import device_name
 from ..utils.profiling import measure
 
 # Peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s, bf16
@@ -235,13 +236,11 @@ def run_case(name: str, batch: int, dtype=torch.bfloat16, device="cuda",
         outs = last[0] if isinstance(last[0], tuple) else (last[0],)
         finite = all(bool(torch.isfinite(t).all()) for t in outs)
     cost = layer_cost(name, batch, dtype)
-    dev = torch.device(device)
     return {"layer": name, "ms": ms, "bound_ms": cost["bound_ms"],
             "x_bound": ms / cost["bound_ms"], "bound_by": cost["bound_by"],
             "finite": finite, "batch": batch,
             "dtype": str(dtype).replace("torch.", ""),
-            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                       else "cpu")}
+            "device": device_name(device)}
 
 
 def main(argv=None):

@@ -64,7 +64,17 @@ Runs straight through and raises (exit code != 0) on any failure:
    tools: tail_kernel_bench beside phase 4, gallery_bench's stage split
    of a certify batch (refine equal to predict_fn), pkl_converter and
    validate_conversion on a synthetic 1024^2 snapshot (bit-equal images
-   through the chain kernels), certified_curve over phase 5's TSV.
+   through the chain kernels), certified_curve over phase 5's TSV;
+13. the study tools at 1024^2 with He-scaled ArcFace, bf16 through the
+   chain kernels (launch counters zeroed before each run, read after):
+   spectral_study (gamma 0 and -0.5, each slope within 0.05 of plain
+   bf16's), coverage_sweep on the card (p = 0.55 and 0.999, 50 trials,
+   the JAX deployment test's bounds), adaptive_study (three modes, then
+   the grouped device engine; guaranteed agreement 1.0),
+   resolution_study (1024^2 and 512^2, launches per pass, the cascade
+   line), mix_study (predicted and measured samples on a spread of pA)
+   and weak_scaling (one rank, f32: FLOPs per sample, no collective;
+   more ranks than GPUs raise).
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -1729,6 +1739,195 @@ def check_certified_curve(root):
                              "share of correct rows")
 
 
+# ---- phase 13: the study tools ------------------------------------------
+
+
+@contextlib.contextmanager
+def tool_env(**env):
+    """Set the tools' environment knobs for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_spectral_study(bc, gpu):
+    """Phase 13: tools/spectral_study at 1024^2, 8 images, gamma 0 and
+    -0.5, bf16 through the chain kernels (all four launch); each slope
+    finite and within 0.05 of the same gamma's on plain bf16 ops."""
+    from certifyingfacerecognition_torch.tools import spectral_study
+
+    t0 = time.time()
+    with tool_env(CFR_TAIL="bc", SS_GAMMAS="0,-0.5", SS_RESOLUTION="1024",
+                  SS_IMAGES="8", SS_DTYPE="bf16"):
+        bc.reset_launches()
+        lines = _json_lines(spectral_study.main, [])
+        launches = chain_launches(bc)
+    if not all(launches.values()):
+        raise AssertionError(f"spectral_study: chain kernels not launched: "
+                             f"{launches}")
+    slopes = {x["gamma"]: x["psd_slope"] for x in lines if "gamma" in x}
+    with tool_env(CFR_TAIL=""):
+        bc.reset_launches()
+        plain = {g: spectral_study.measure_gamma(g, 1024, 8, torch.bfloat16)
+                 for g in slopes}
+        assert not any(bc.LAUNCHES.values()), bc.LAUNCHES
+    log(f"spectral_study 1024^2, 8 images: PSD slope chain tail {slopes}, "
+        f"plain bf16 {plain}; chosen {lines[-1]}; launches {launches}; "
+        f"{time.time() - t0:.1f} s [{gpu}]")
+    if sorted(slopes) != [-0.5, 0.0] or not all(
+            np.isfinite(v) for v in list(slopes.values())
+            + list(plain.values())):
+        raise AssertionError("spectral_study: a slope is missing or not "
+                             "finite")
+    for g, v in slopes.items():
+        if abs(v - plain[g]) > 0.05:
+            raise AssertionError(f"spectral_study gamma {g}: slope {v} "
+                                 f"through the kernels, {plain[g]} plain")
+
+
+def check_coverage_sweep(gpu):
+    """Phase 13: tools/coverage_sweep on the card at its N = 10,000
+    defaults, 50 trials at p = 0.55 and 0.999, held to the bounds of the
+    JAX package's deployment-config coverage test."""
+    from certifyingfacerecognition_torch.tools import coverage_sweep
+
+    t0 = time.time()
+    with tool_env(CS_PGRID="0.55,0.999", CS_TRIALS="50"):
+        lines = _json_lines(coverage_sweep.main, [])
+    rows = {x["p_true"]: x for x in lines if "p_true" in x}
+    for x in lines:
+        log(f"coverage_sweep {json.dumps(x)} [{gpu}]")
+    full = 10_000 + 100
+    hi, lo = rows[0.999], rows[0.55]
+    if hi["certified"] != 50 or hi["violations"] or \
+            not hi["mean_samples"] < 0.6 * full:
+        raise AssertionError(f"coverage_sweep p = 0.999: {hi}")
+    if not lo["mean_samples"] > 0.8 * full:
+        raise AssertionError(f"coverage_sweep p = 0.55: {lo}")
+    log(f"coverage_sweep: {time.time() - t0:.1f} s [{gpu}]")
+
+
+def check_adaptive_study(bc, gpu):
+    """Phase 13: tools/adaptive_study, 4 identities, a gallery of 8, N =
+    1024, N0 = 128, sigma 0.1, one batch per checkpoint: fixed,
+    guaranteed and sequential with the host engine (guaranteed agrees
+    with fixed: 1.0), then guaranteed with the device engine in groups of
+    2 (the host engine's decisions); the chain kernels launch in both."""
+    from certifyingfacerecognition_torch.tools import adaptive_study
+
+    t0 = time.time()
+    knobs = dict(CFR_TAIL="bc", AS_IDS="4", AS_GALLERY="8", AS_N="1024",
+                 AS_N0="128", AS_SIGMA="0.1", AS_CHUNK="1")
+    with tool_env(**knobs):
+        bc.reset_launches()
+        lines = _json_lines(adaptive_study.main, [])
+        launches = chain_launches(bc)
+        with tool_env(AS_MODES="guaranteed", AS_ENGINE="device",
+                      AS_GROUP="2"):
+            bc.reset_launches()
+            grouped = _json_lines(adaptive_study.main, [])[0]
+            launches_g = chain_launches(bc)
+    for x in lines + [grouped]:
+        log(f"adaptive_study {json.dumps(x)} [{gpu}]")
+    guaranteed = {x["mode"]: x for x in lines}["guaranteed"]
+    if guaranteed["decision_agreement_vs_fixed"] != 1.0:
+        raise AssertionError("adaptive_study: guaranteed mode disagrees "
+                             "with the fixed run")
+    if (grouped["certified_correct"], grouped["abstain"]) != (
+            guaranteed["certified_correct"], guaranteed["abstain"]):
+        raise AssertionError("adaptive_study: the grouped device engine "
+                             "decides otherwise than the host engine")
+    if not all(launches.values()) or not all(launches_g.values()):
+        raise AssertionError(f"adaptive_study: chain kernels not launched: "
+                             f"{launches}, {launches_g}")
+    log(f"adaptive_study launches {launches} (host engine, three modes), "
+        f"{launches_g} (device engine, groups of 2); "
+        f"{time.time() - t0:.1f} s [{gpu}]")
+
+
+def check_resolution_study(bc, gpu):
+    """Phase 13: tools/resolution_study, 4 identities, a gallery of 8, N
+    = 256, N0 = 128 at 1024^2 and 512^2: the 1024^2 pass launches the four
+    chain kernels, the 512^2 pass all but conv_fused (launches counted
+    per Smooth); the cascade's certified rows agree with the native
+    run's."""
+    from certifyingfacerecognition_torch.tools import resolution_study
+
+    t0 = time.time()
+    with tool_env(CFR_TAIL="bc", RS_IDS="4", RS_GALLERY="8", RS_N="256",
+                  RS_N0="128", RS_RESOLUTIONS="1024,512"), \
+            launches_by_smoother(bc) as by_smoother:
+        lines = _json_lines(resolution_study.main, [])
+    for x in lines:
+        log(f"resolution_study {json.dumps(x)} [{gpu}]")
+    native, fast = by_smoother.values()
+    log(f"resolution_study launches: 1024^2 {native}, 512^2 {fast}; "
+        f"{time.time() - t0:.1f} s [{gpu}]")
+    if not all(native.values()) or fast["conv_fused"] or not all(
+            fast[k] for k in ("up_fused", "final_stats", "final_apply")):
+        raise AssertionError(f"resolution_study launches: {native}, {fast}")
+    cascade = lines[-1]["cascade"]
+    if cascade["certified_row_agreement"] != 1.0:
+        raise AssertionError(f"resolution_study cascade: {cascade}")
+    log(f"resolution_study cascade at 512^2: lost certifications "
+        f"{cascade['lost_certifications']}")
+
+
+def check_mix_study(bc, gpu):
+    """Phase 13: tools/mix_study, 8 identities in groups of 4, N = 512,
+    N0 = 128, sigma 4 (its default), 4 calibration identities, 100
+    simulations each: the predicted and measured samples and identities
+    per hour, with the p_hat histogram (no bound on their error)."""
+    from certifyingfacerecognition_torch.tools import mix_study
+
+    t0 = time.time()
+    with tool_env(CFR_TAIL="bc", MS_IDS="8", MS_GROUP="4", MS_N="512",
+                  MS_N0="128", MS_OVERHEAD_IDS="4", MS_SIMS="100"):
+        bc.reset_launches()
+        line = _json_lines(mix_study.main, [])[-1]
+        launches = chain_launches(bc)
+    log(f"mix_study {json.dumps(line)} [{gpu}]")
+    if not all(launches.values()):
+        raise AssertionError(f"mix_study: chain kernels not launched: "
+                             f"{launches}")
+    if sum(line["p_hat_hist"]) != 8 or not all(np.isfinite(line[k]) for k in (
+            "pred_mean_samples", "meas_mean_samples", "samples_rel_err")):
+        raise AssertionError(f"mix_study: {line}")
+    log(f"mix_study: p_hat histogram {line['p_hat_hist']} over "
+        f"{line['p_hat_bins']}; samples predicted "
+        f"{line['pred_mean_samples']}, measured {line['meas_mean_samples']}"
+        f" (rel. err. {line['samples_rel_err']}); ids/hour predicted "
+        f"{line['pred_ids_per_hour']}, measured {line['meas_ids_per_hour']}"
+        f"; launches {launches}; {time.time() - t0:.1f} s [{gpu}]")
+
+
+def check_weak_scaling(gpu):
+    """Phase 13: tools/weak_scaling on one card, one rank, 8 samples per
+    batch, 4 batches, 1024^2 f32: FLOPs per sample and samples/s, no
+    collective; more ranks than GPUs raise."""
+    from certifyingfacerecognition_torch.tools import weak_scaling
+
+    t0 = time.time()
+    row = weak_scaling.run_scan([1], per_dev_batch=8, n_batches=4,
+                                resolution=1024)[0]
+    log(f"weak_scaling {json.dumps(row)}; {time.time() - t0:.1f} s [{gpu}]")
+    if row["collectives"] or not row["flops_per_device_per_sample"] > 0:
+        raise AssertionError(f"weak_scaling: {row}")
+    try:
+        weak_scaling.run_scan([torch.cuda.device_count() + 1])
+    except ValueError as e:
+        log(f"weak_scaling with more ranks than GPUs raises: {e}")
+    else:
+        raise AssertionError("weak_scaling ran more ranks than GPUs")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1886,6 +2085,19 @@ def main() -> int:
         check_pkl(bc, root, w, gpu)
         check_certified_curve(root)
         log(f"phase 12: {time.time() - t12:.1f} s")
+
+        t13 = time.time()
+        torch.cuda.empty_cache()
+        check_spectral_study(bc, gpu)
+        check_coverage_sweep(gpu)
+        check_adaptive_study(bc, gpu)
+        torch.cuda.empty_cache()
+        check_resolution_study(bc, gpu)
+        torch.cuda.empty_cache()
+        check_mix_study(bc, gpu)
+        torch.cuda.empty_cache()
+        check_weak_scaling(gpu)
+        log(f"phase 13: {time.time() - t13:.1f} s")
 
     records = []
     for name in CHAIN + STANDALONE:

@@ -38,6 +38,8 @@ def test_scan_covers_the_port():
             "pggan.py", "generate_data.py", "manipulator.py", "png.py",
             "mesh.py", "gallery.py", "profiling.py", "tail_kernel_bench.py",
             "gallery_bench.py", "pkl_converter.py", "validate_conversion.py",
-            "certified_curve.py"} <= names
+            "certified_curve.py", "adaptive_study.py", "resolution_study.py",
+            "spectral_study.py", "mix_study.py", "coverage_sweep.py",
+            "weak_scaling.py"} <= names
     assert ROOT / "certifyingfacerecognition_torch" / "tools" / \
         "pkl_converter.py" in FILES
