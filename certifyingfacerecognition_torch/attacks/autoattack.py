@@ -232,6 +232,48 @@ def run_standard_evaluation(
     return StandardEvalResult(deltas, y_adv, ~robust, magnitudes, acc)
 
 
+def _split(gen: torch.Generator) -> torch.Generator:
+    """A new generator on ``gen``'s device, seeded from ``gen``'s stream
+    (the JAX package splits its key)."""
+    seed = torch.randint(2 ** 62, (), generator=gen, device=gen.device)
+    return torch.Generator(device=gen.device).manual_seed(int(seed))
+
+
+def run_standard_evaluation_individual(
+    logits_fn: Callable[[torch.Tensor], torch.Tensor],
+    labels: torch.Tensor,
+    gen: torch.Generator,
+    region: G.RegionMatrices,
+    *,
+    attacks_to_run: Optional[Sequence[str]] = None,
+    version: str = "standard",
+    logger=None,
+    **kwargs,
+) -> Dict[str, StandardEvalResult]:
+    """Per-attack (not sequential) evaluation: each attack runs on the
+    full clean batch on its own, with a generator of its own drawn from
+    ``gen``, and reports its own robust accuracy. ``kwargs`` go to
+    run_standard_evaluation. Returns {attack: StandardEvalResult}."""
+    if attacks_to_run is None:
+        if version not in VERSION_PRESETS:
+            raise ValueError(f"unknown AutoAttack version {version!r}")
+        attacks_to_run = VERSION_PRESETS[version]
+    out = {}
+    for name in attacks_to_run:
+        t0 = time.time()
+        out[name] = run_standard_evaluation(
+            logits_fn, labels, _split(gen), region, attacks_to_run=(name,),
+            version=version, **kwargs)
+        if logger is not None:
+            # with clean accuracy 0 the attack never runs: its robust
+            # accuracy is the clean one (0 %), not 100 %
+            acc = out[name].robust_accuracy.get(
+                name, out[name].robust_accuracy.get("clean", 1.0))
+            logger.info(f"robust accuracy by {name.upper()} \t {acc:.2%} "
+                        f"\t (time attack: {time.time() - t0:.1f} s)")
+    return out
+
+
 def _logits_of(dists_fn: Callable, lat_codes: torch.Tensor,
                region: G.RegionMatrices) -> Callable:
     """logits(deltas) = -dists(lat + deltas @ dirs^T), the product in

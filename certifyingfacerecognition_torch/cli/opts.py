@@ -149,3 +149,7 @@ def finalize_args(args: argparse.Namespace, writer: bool = True
     logger.info(args2text(args))
     args.LOGGER = logger
     return args
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    return finalize_args(build_parser().parse_args(argv))

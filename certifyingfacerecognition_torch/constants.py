@@ -32,6 +32,14 @@ OPTIMS = ["Adam", "SGD", "RMSProp"]
 ATTACKS = ["fab-t", "fab", "apgd-ce", "apgd-dlr", "apgd-t", "manual",
            "square", "autoattack", "autoattack-rand", "autoattack-plus"]
 
+# The latent space, dataset, generator and image format of a study's
+# identities.
+LAT_SPACE = "w"
+DATASET = "ffhq"
+GAN_NAME = "stylegan"
+IMAGE_EXT = "png"
+
 # StyleGAN inference settings.
 STYLEGAN_TRUNCATION_PSI = 0.7
 STYLEGAN_TRUNCATION_LAYERS = 8
+STYLEGAN_RANDOMIZE_NOISE = False

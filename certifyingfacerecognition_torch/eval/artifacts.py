@@ -1,7 +1,7 @@
 """Chunk artifact IO (a copy of certifyingfacerecognition_tpu/eval/
 artifacts.py, same file formats): per-chunk ``results_chunk{K}of{N}.npz``
 (deltas/successes/magnitudes of the successful samples; the reference's
-``.pth`` files are read too) and a text log of
+``.pth`` files are read, and written on request) and a text log of
 ``successes:/instances:/avg_mags:`` lines.
 """
 
@@ -20,17 +20,24 @@ from ..utils.logger import print_to_log
 def save_chunk_results(results: Dict, deltas: np.ndarray,
                        successes: np.ndarray, magnitudes: np.ndarray,
                        num_chunk: int, chunks: int, results_dir: str,
-                       logs_dir: str) -> Tuple[str, Optional[str]]:
+                       logs_dir: str, also_torch: bool = False
+                       ) -> Tuple[str, Optional[str]]:
     """Persist one chunk's outputs (gen_utils.py:413-437). Only successful
-    deltas are stored. Returns (log_file, data_file_or_None)."""
+    deltas are stored; ``also_torch`` also writes the reference's
+    ``.pth`` (successes as [n, 1]). Returns (log_file, data_file_or_None),
+    the data file being the ``.npz``."""
     filename = f"results_chunk{num_chunk}of{chunks}"
     data_file = None
     if successes.sum() != 0:
         data_file = osp.join(results_dir, f"{filename}.npz")
-        np.savez(data_file,
-                 deltas=np.asarray(deltas)[successes],
-                 successes=np.nonzero(successes)[0],
-                 magnitudes=np.asarray(magnitudes)[successes])
+        data = {"deltas": np.asarray(deltas)[successes],
+                "successes": np.nonzero(successes)[0],
+                "magnitudes": np.asarray(magnitudes)[successes]}
+        np.savez(data_file, **data)
+        if also_torch:
+            data["successes"] = data["successes"][:, None]
+            torch.save({k: torch.from_numpy(v) for k, v in data.items()},
+                       osp.join(results_dir, f"{filename}.pth"))
 
     log_file = osp.join(logs_dir, f"{filename}.txt")
     info = "\n".join(f"{k}:{v}" for k, v in results.items())

@@ -40,20 +40,24 @@ from ..ops import geometry as G
 from . import artifacts, ranking
 
 
-def make_dists_fn(frs_method: str, resolution: int, dtype=torch.float32
-                  ) -> Callable:
+def make_dists_fn(frs_method: str, resolution: int, dtype=torch.float32,
+                  remat: bool = True) -> Callable:
     """dists(params, w [B, 512]) -> [B, N] differentiable gallery
     distances; params = {gen, frm, gallery}.
 
-    With grad enabled the generator + FRM forward is recomputed in the
-    backward pass (one checkpoint around the whole function): keeping
-    every 1024^2 synthesis activation for the gradient costs
-    O(batch x depth) memory; recomputing costs one extra forward."""
+    With ``remat`` and grad enabled the generator + FRM forward is
+    recomputed in the backward pass (one checkpoint around the whole
+    function): keeping every 1024^2 synthesis activation for the gradient
+    costs O(batch x depth) memory; recomputing costs one extra forward.
+    remat=False keeps the activations instead."""
     embed = make_lat2embs(frs_method, resolution, dtype=dtype)
 
     def dists(params, w):
         embs = embed(params["gen"], params["frm"], w).float()
         return D.cdist(embs, params["gallery"], frs_method)
+
+    if not remat:
+        return dists
 
     def remat_dists(params, w):
         if torch.is_grad_enabled():

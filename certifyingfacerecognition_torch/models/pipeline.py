@@ -16,6 +16,7 @@ import torch
 from . import facenet, iresnet, stylegan
 from ..constants import INP_RESOLS, MEAN, STD
 from ..ops import distances as D
+from ..ops import geometry as G
 from ..ops.resize import transform_for_frs, transform_for_frs_cb
 from ..utils.device import f32_exact_math, resolve_device, tree_map
 
@@ -48,12 +49,14 @@ def make_lat2embs(frs_method: str, resolution: int, dtype=torch.float32
 
 @dataclass
 class FacePipeline:
-    """Bundled generator + FRS + gallery. ``predict_fn_with_params`` gives
-    the exact argmin-distance identity of the perturbed latents
-    w = z + p @ dirs. Parameters, directions and gallery are moved to
-    ``device``; ``lat2embs`` and the predictions run under
-    torch.inference_mode (forward only). ``embed_fn`` itself stays
-    differentiable: the attack path calls it with grad enabled."""
+    """Bundled generator + FRS + gallery, and the smoothed base
+    classifier over the perturbed latents w = z + p @ dirs: ``logits(z,
+    p)`` the negative gallery distances, ``probs`` their softmax(-d /
+    sqrt(512)), ``predict`` the exact argmin-distance identity. Parameters,
+    directions and gallery are moved to ``device``; ``lat2embs`` and the
+    predictions run under torch.inference_mode (forward only).
+    ``embed_fn`` and ``logits`` stay differentiable: attacks take their
+    gradient."""
 
     gen_params: Dict
     frm_params: Dict
@@ -99,6 +102,36 @@ class FacePipeline:
                                           batch)[:n])
             return torch.cat(outs)
 
+    # ---- classifier head over the gallery ----
+    def perturb_latents(self, z, p) -> torch.Tensor:
+        """w = z + p @ dirs in full f32; z [512] or [B, 512], p [B, k]."""
+        return torch.atleast_2d(z) + G.matmul_f32(p, self.dirs)
+
+    def logits(self, z, p) -> torch.Tensor:
+        """Negative distances to the gallery [B, N] (differentiable)."""
+        embs = self.embed_fn(self.gen_params, self.frm_params,
+                             self.perturb_latents(z, p)).float()
+        gallery = self.gallery
+        if gallery.is_inference():
+            # made by lat2embs: autograd cannot save an inference tensor
+            gallery = gallery.clone()
+        return -D.cdist(embs, gallery, self.frs_method)
+
+    def probs(self, z, p) -> torch.Tensor:
+        return D.probs_from_dists(-self.logits(z, p))
+
+    def predict(self, z, p) -> torch.Tensor:
+        """Exact argmin-distance identity prediction [B] (forward only)."""
+        with torch.inference_mode():
+            embs = self.embed_fn(self.gen_params, self.frm_params,
+                                 self.perturb_latents(z, p))
+            return D.argmin_dist_refined(embs, self.gallery, self.frs_method)
+
+    def predict_fn(self) -> Callable:
+        """The (z, p) -> predictions closure of predict_fn_with_params."""
+        fn, params = self.predict_fn_with_params()
+        return partial(fn, params)
+
     def predict_fn_with_params(self, mesh=None, offset: int = 0
                                ) -> Tuple[Callable, Dict]:
         """(fn, params) with fn(params, z [512], p [B, k]) -> predictions
@@ -117,7 +150,7 @@ class FacePipeline:
 
         def fn(params, z, p):
             with torch.inference_mode():
-                w = z[None, :] + p @ params["dirs"]
+                w = z[None, :] + G.matmul_f32(p, params["dirs"])
                 embs = embed_fn(params["gen"], params["frm"], w)
                 return D.argmin_dist_refined(embs, params["gallery"], method)
 

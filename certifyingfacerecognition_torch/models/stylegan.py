@@ -312,6 +312,13 @@ def synthesize_from_w(params: Dict, w: torch.Tensor, *, resolution: int,
     return postprocess(img)
 
 
+def synthesize_from_z(params: Dict, z: torch.Tensor, *, resolution: int,
+                      dtype=torch.float32) -> torch.Tensor:
+    """mapping -> synthesize_from_w: Z [B, 512] -> [B, 3, H, W] in [0, 1]."""
+    w = mapping_apply(params, z, dtype=dtype)
+    return synthesize_from_w(params, w, resolution=resolution, dtype=dtype)
+
+
 # ---------------------------------------------------------------------------
 # Weight conversion
 # ---------------------------------------------------------------------------

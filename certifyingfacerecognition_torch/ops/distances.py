@@ -25,6 +25,13 @@ def sq_euclidean_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.clamp(xx + yy - 2.0 * xy, min=0.0)
 
 
+def euclidean_exact(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Exact elementwise Euclidean distances [B, N] (memory O(B*N*d);
+    only for small candidate sets)."""
+    diff = x[:, None, :] - y[None, :, :]
+    return torch.sqrt((diff * diff).sum(-1))
+
+
 class _SafeSqrt(torch.autograd.Function):
     """sqrt whose gradient is 0 where its input is 0 (the JAX package's
     _safe_sqrt): at a sample's own gallery entry the distance can be

@@ -18,6 +18,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import distances as D
+from ..ops import geometry as G
 
 
 def shard_rows(n: int, n_id: int, id_: int) -> Tuple[int, int]:
@@ -65,7 +66,7 @@ def make_sharded_gallery_predict_fn(embed_fn: Callable, id_group,
 
     def fn(params, z, p):
         with torch.inference_mode():
-            w = z[None, :] + p @ params["dirs"]
+            w = z[None, :] + G.matmul_f32(p, params["dirs"])
             embs = embed_fn(params["gen"], params["frm"], w).float()
             return sharded_nearest(embs, params["gallery"], offset,
                                    id_group, method)

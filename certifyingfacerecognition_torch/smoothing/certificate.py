@@ -16,6 +16,13 @@ class L2Certificate:
 
     norm = "l2"
 
+    def compute_proxy_gap(self, probs: torch.Tensor) -> torch.Tensor:
+        """Phi^-1(p0) - Phi^-1(p1) of the first two columns of ``probs``
+        [B, >= 2], each clipped to [0.001, 0.999]."""
+        p0 = torch.clamp(probs[:, 0], 0.001, 0.999)
+        p1 = torch.clamp(probs[:, 1], 0.001, 0.999)
+        return torch.special.ndtri(p0) - torch.special.ndtri(p1)
+
     def sample_noise(self, generator: torch.Generator, shape, sigma
                      ) -> torch.Tensor:
         """N(0, sigma^2) noise of ``shape`` on the generator's device."""
@@ -33,3 +40,7 @@ class L2Certificate:
         success count)."""
         from scipy.stats import norm
         return norm.ppf(p_a_bar)
+
+    def compute_radius_estimate(self, probs: torch.Tensor, sigma
+                                ) -> torch.Tensor:
+        return sigma / 2.0 * self.compute_proxy_gap(probs)

@@ -14,17 +14,21 @@ import sys
 from typing import Optional
 
 
-def setup_logger(work_dir: Optional[str], logger_name: str,
+def setup_logger(work_dir: Optional[str] = None,
+                 logfile_name: str = "log.txt", logger_name: str = "logger",
                  allow_existing: bool = False) -> logging.Logger:
-    """A logger writing INFO to stdout and DEBUG to work_dir/log.txt;
-    allow_existing=True appends to an existing log.txt. With work_dir
+    """A logger writing INFO to stdout and DEBUG to work_dir/logfile_name.
+    allow_existing=True appends to an existing log file and returns a
+    logger of that name that is already set up as it is. With work_dir
     None it writes to stdout only (a rank that writes no files)."""
     logger = logging.getLogger(logger_name)
     # Check the logger's OWN handlers, not hasHandlers(): that walks up to
     # the root logger and would trip on unrelated root handlers (pytest's
     # capture handler, absl, ...).
-    if logger.handlers:
+    if logger.handlers and not allow_existing:
         raise SystemExit(f"Logger name `{logger_name}` has already been set up!")
+    if logger.handlers:
+        return logger
 
     logger.setLevel(logging.DEBUG)
     formatter = logging.Formatter(
@@ -38,7 +42,7 @@ def setup_logger(work_dir: Optional[str], logger_name: str,
         return logger
 
     os.makedirs(work_dir, exist_ok=True)
-    log_path = os.path.join(work_dir, "log.txt")
+    log_path = os.path.join(work_dir, logfile_name)
     if os.path.isfile(log_path) and not allow_existing:
         raise SystemExit(f"Log file `{log_path}` already exists!")
     fh = logging.FileHandler(log_path)

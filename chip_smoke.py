@@ -74,7 +74,17 @@ Runs straight through and raises (exit code != 0) on any failure:
    resolution_study (1024^2 and 512^2, launches per pass, the cascade
    line), mix_study (predicted and measured samples on a spread of pA)
    and weak_scaling (one rank, f32: FLOPs per sample, no collective;
-   more ranks than GPUs raise).
+   more ranks than GPUs raise);
+14. the public-API remainder at 1024^2, bf16 with CFR_TAIL=bc, on phase
+   5's weights and latents and phase 9's attack data: (a)
+   stylegan.synthesize_from_z through the chain kernels against plain
+   bf16 and f32; (b) FacePipeline's predict, predict_fn, logits and probs
+   on phase 5's gallery; (c) the gradient through make_dists_fn with
+   remat=False against remat=True, f32 and bf16, with their peak memory;
+   (d) run_standard_evaluation_individual (apgd-ce, square), every
+   success re-verified, deltas feasible; (e) save_chunk_results
+   (also_torch=True), the .pth read back equal to the .npz. Each step's
+   seconds are printed.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -1928,6 +1938,282 @@ def check_weak_scaling(gpu):
         raise AssertionError("weak_scaling ran more ranks than GPUs")
 
 
+# Phase 14: the public-API remainder
+API_Z = 8                # latents of synthesize_from_z and FacePipeline
+API_GRAD_B = 2           # batch of the remat gradient comparison
+API_AA_ATTACKS = ("apgd-ce", "square")
+API_AA_KW = {"preset_iters": 3, "square_queries": 20}
+
+
+def require_chain(bc, step):
+    """Every chain kernel launched since the counters were last zeroed."""
+    launches = chain_launches(bc)
+    if not all(launches.values()):
+        raise AssertionError(f"{step}: chain kernels not launched: "
+                             f"{launches}")
+    return launches
+
+
+def api_synthesize_from_z(bc, gen_params, gpu):
+    """(a) stylegan.synthesize_from_z on API_Z latents through the chain
+    kernels, on plain bf16 and in f32: finite images of the expected
+    shape, the chain path within phase 5's image rule."""
+    from certifyingfacerecognition_torch.models import stylegan
+
+    z = torch.randn((API_Z, 512), generator=torch.Generator().manual_seed(14)
+                    ).cuda()
+    imgs = {}
+    for tag, dtype, tail in (("bc", torch.bfloat16, "bc"),
+                             ("plain16", torch.bfloat16, ""),
+                             ("f32", torch.float32, "")):
+        os.environ["CFR_TAIL"] = tail
+        bc.reset_launches()
+        with torch.inference_mode():
+            img = stylegan.synthesize_from_z(gen_params, z, resolution=1024,
+                                             dtype=dtype)
+        torch.cuda.synchronize()
+        if tag == "bc":
+            launches = require_chain(bc, "synthesize_from_z")
+        else:
+            assert not any(bc.LAUNCHES.values()), bc.LAUNCHES
+        assert img.shape == (API_Z, 3, 1024, 1024), img.shape
+        imgs[tag] = img.float()
+        assert torch.isfinite(imgs[tag]).all()
+    os.environ["CFR_TAIL"] = "bc"
+    err = {t: (imgs[t] - imgs["f32"]).abs().mean().item()
+           for t in ("bc", "plain16")}
+    log(f"(a) synthesize_from_z {API_Z} x 1024^2 vs f32: mean|err| chain "
+        f"tail {err['bc']:.3e}, plain bf16 {err['plain16']:.3e}; "
+        f"launches {launches}")
+    assert err["bc"] <= 1.5 * err["plain16"] + 1e-4
+
+
+def api_pipeline(bc, gen_params, frm_path, w, embs):
+    """(b) FacePipeline at 1024^2 bf16 through the chain kernels on phase
+    5's gallery, z = phase 5's first latent, p = 0.1 N(0, 1) over the five
+    directions: predict equals predict_fn() and predict_fn_with_params's
+    fn bit for bit; logits (grad enabled) equal -make_dists_fn at
+    perturb_latents to the bf16 rule; each row of probs sums to 1 within
+    1e-5."""
+    from certifyingfacerecognition_torch.eval.chunk_runner import \
+        make_dists_fn
+    from certifyingfacerecognition_torch.models.pipeline import FacePipeline
+    from certifyingfacerecognition_torch.ops.geometry import get_all_matrices
+    from certifyingfacerecognition_torch.utils import weights as W
+
+    os.environ["CFR_TAIL"] = "bc"
+    bc.reset_launches()
+    pipe = FacePipeline(gen_params, W.load_frm_params(frm_path),
+                        dirs=get_all_matrices().dirs.T, resolution=1024,
+                        dtype=torch.bfloat16, gallery=embs, device="cuda")
+    z = torch.as_tensor(w[0], device="cuda")
+    p = 0.1 * torch.randn((API_Z, pipe.dirs.shape[0]),
+                          generator=torch.Generator().manual_seed(15)).cuda()
+    pred = pipe.predict(z, p)
+    fn, params = pipe.predict_fn_with_params()
+    same = (torch.equal(pred, pipe.predict_fn()(z, p))
+            and torch.equal(pred, fn(params, z, p)))
+    pg = p.clone().requires_grad_()
+    logits = pipe.logits(z, pg)
+    assert logits.requires_grad and logits.shape == (API_Z, len(embs))
+    with torch.no_grad():
+        want = -make_dists_fn("insightface", 1024, torch.bfloat16)(
+            {"gen": pipe.gen_params, "frm": pipe.frm_params,
+             "gallery": pipe.gallery}, pipe.perturb_latents(z, p))
+        probs = pipe.probs(z, p)
+    torch.cuda.synchronize()
+    launches = require_chain(bc, "FacePipeline")
+    err = (logits.detach() - want).abs().max().item()
+    scale = want.abs().max().item()
+    sums = (probs.sum(1) - 1.0).abs().max().item()
+    log(f"(b) FacePipeline bf16 chain tail, {API_Z} samples, gallery "
+        f"{len(embs)}: predict {pred.tolist()}, equal to predict_fn and "
+        f"predict_fn_with_params bit for bit: {same}; logits vs "
+        f"-make_dists_fn max|err| {err:.3e} of max {scale:.3e}; probs rows "
+        f"sum to 1 within {sums:.2e}; launches {launches}")
+    assert same
+    assert torch.isfinite(logits).all()
+    assert err <= TOL[torch.bfloat16] * scale
+    assert sums <= 1e-5
+
+
+def api_remat_grads(bc, params, w_atk, gpu):
+    """(c) the gradient of the xent attack loss with respect to w through
+    make_dists_fn(remat=False) and remat=True at batch API_GRAD_B, on
+    phase 9's attack data: in f32 on plain ops they agree to 1e-5 of the
+    largest value; through the chain kernels in bf16, remat=False is held
+    to f32 by attack_grad_check's rule (mean |err| over mean |f32
+    gradient| at most 1.5x remat=True's plus 0.02). Peak GiB and seconds
+    of each (remat=True runs first as a warm-up, and is timed after
+    remat=False).
+
+    The f32 gradients run with cudnn.deterministic: cuDNN's default f32
+    backward algorithms are not deterministic, and two identical runs
+    differ by ~2e-3 of the largest value on an H100 (printed: one more
+    remat=True gradient without it, against the deterministic one). The
+    bf16 path is deterministic as it stands."""
+    from certifyingfacerecognition_torch.attacks.losses import compute_loss
+    from certifyingfacerecognition_torch.eval.chunk_runner import \
+        make_dists_fn
+
+    x0 = torch.as_tensor(w_atk[:API_GRAD_B], device="cuda")
+    labels = torch.arange(API_GRAD_B, device="cuda")
+
+    def grad(dtype, remat):
+        fn = make_dists_fn("insightface", 1024, dtype, remat=remat)
+        x = x0.clone().requires_grad_()
+        loss = compute_loss(fn(params, x), labels, loss_type="xent")
+        return torch.autograd.grad(loss, x)[0]
+
+    def rel_max(a, b):
+        return ((a - b).abs().max() / b.abs().max()).item()
+
+    grads, peak, secs = {}, {}, {}
+    for tag, dtype, tail in (("f32", torch.float32, ""),
+                             ("bc", torch.bfloat16, "bc")):
+        os.environ["CFR_TAIL"] = tail
+        torch.backends.cudnn.deterministic = tag == "f32"
+        bc.reset_launches()
+        try:
+            for remat in (True, False, True):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.time()
+                g = grads[tag, remat] = grad(dtype, remat)
+                torch.cuda.synchronize()
+                secs[tag, remat] = time.time() - t0
+                peak[tag, remat] = (torch.cuda.max_memory_allocated() - base
+                                    ) / 2 ** 30
+                assert torch.isfinite(g).all() and g.abs().max() > 0
+        finally:
+            torch.backends.cudnn.deterministic = False
+        if tag == "bc":
+            launches = require_chain(bc, "make_dists_fn gradient")
+    os.environ["CFR_TAIL"] = ""
+    g32 = grads["f32", True]
+    spread = rel_max(grad(torch.float32, True), g32)
+    os.environ["CFR_TAIL"] = "bc"
+    rel32 = rel_max(grads["f32", False], g32)
+    err = {r: ((grads["bc", r] - g32).abs().mean() / g32.abs().mean()).item()
+           for r in (True, False)}
+    direct = rel_max(grads["bc", False], grads["bc", True])
+    log(f"(c) make_dists_fn gradient d/dw, batch {API_GRAD_B}, 1024^2: f32 "
+        f"(cudnn.deterministic) remat=False vs True max|err| {rel32:.2e} "
+        f"of max (the same gradient without cudnn.deterministic differs "
+        f"by {spread:.2e}); bf16 chain tail vs f32 (mean|err| / mean|f32|): "
+        f"remat=True {err[True]:.4f}, remat=False {err[False]:.4f}, the "
+        f"two {direct:.2e} apart (of max); peak GiB above the weights, s: "
+        f"f32 remat=True {peak['f32', True]:.2f}, {secs['f32', True]:.3f}; "
+        f"remat=False {peak['f32', False]:.2f}, {secs['f32', False]:.3f}; "
+        f"bf16 remat=True {peak['bc', True]:.2f}, {secs['bc', True]:.3f}; "
+        f"remat=False {peak['bc', False]:.2f}, {secs['bc', False]:.3f}; "
+        f"launches {launches} [{gpu}]")
+    assert rel32 <= 1e-5
+    assert err[False] <= 1.5 * err[True] + 0.02
+
+
+def api_individual(bc, params, w_atk, gpu):
+    """(d) run_standard_evaluation_individual with API_AA_ATTACKS on the
+    first AA_IDS attack identities (3 iterations, 20 queries; phase 9's
+    --scale-factor) through the chain kernels: every success re-verified
+    through the exact predict at the attack's batch, every result's deltas
+    feasible. Returns the results."""
+    from certifyingfacerecognition_torch.attacks.autoattack import \
+        run_standard_evaluation_individual
+    from certifyingfacerecognition_torch.attacks.pgd import \
+        assert_deltas_feasible
+    from certifyingfacerecognition_torch.eval.chunk_runner import (
+        make_dists_fn, make_predict_fn)
+    from certifyingfacerecognition_torch.ops import geometry as G
+
+    os.environ["CFR_TAIL"] = "bc"
+    region = G.get_all_matrices(scale_factor=ATTACK_SCALE, device="cuda")
+    dirs_t = region.dirs.t()
+    lats = torch.as_tensor(w_atk[:AA_IDS], device="cuda")
+    labels = torch.arange(AA_IDS, device="cuda")
+    dists_fn = make_dists_fn("insightface", 1024, torch.bfloat16)
+    predict = make_predict_fn("insightface", 1024, torch.bfloat16)
+
+    def logits_fn(d):
+        return -dists_fn(params, lats + G.matmul_f32(d, dirs_t))
+
+    lines = []
+
+    class Lines:
+        def info(self, msg):
+            lines.append(msg)
+
+    bc.reset_launches()
+    out = run_standard_evaluation_individual(
+        logits_fn, labels, torch.Generator().manual_seed(0), region,
+        attacks_to_run=API_AA_ATTACKS, logger=Lines(), **API_AA_KW)
+    torch.cuda.synchronize()
+    launches = require_chain(bc, "run_standard_evaluation_individual")
+    assert list(out) == list(API_AA_ATTACKS), list(out)
+    for name, res in out.items():
+        preds = predict(params, lats + G.matmul_f32(res.deltas, dirs_t))
+        succ = res.success
+        assert torch.all(preds[succ] != labels[succ]), (name, preds, succ)
+        assert_deltas_feasible(res.deltas, region)
+        log(f"(d) {name}: {int(succ.sum())} of {AA_IDS} successes, every "
+            f"one re-verified, deltas feasible; robust accuracy "
+            f"{res.robust_accuracy}")
+    log(f"(d) log lines: {lines}; launches {launches} [{gpu}]")
+    assert len(lines) == len(API_AA_ATTACKS)
+    return out
+
+
+def api_chunk_files(root, out):
+    """(e) save_chunk_results(also_torch=True) on (d)'s result with the
+    most successes: load_chunk_data reads the .pth back equal to the .npz
+    (successes [n, 1] in the .pth, [n] in the .npz)."""
+    from certifyingfacerecognition_torch.eval import artifacts
+
+    name, res = max(out.items(), key=lambda kv: int(kv[1].success.sum()))
+    succ = res.success.cpu().numpy()
+    assert succ.any(), f"no success in {list(out)} to write"
+    d = os.path.join(root, "api_chunks")
+    for sub in ("results", "logs"):
+        os.makedirs(os.path.join(d, sub), exist_ok=True)
+    _, npz_file = artifacts.save_chunk_results(
+        {"successes": int(succ.sum()), "instances": len(succ),
+         "avg_mags": 0.0}, res.deltas.cpu().numpy(), succ,
+        res.magnitudes.cpu().numpy(), 0, 1, os.path.join(d, "results"),
+        os.path.join(d, "logs"), also_torch=True)
+    npz = artifacts.load_chunk_data(npz_file)
+    pth = artifacts.load_chunk_data(npz_file[:-4] + ".pth")
+    assert sorted(pth) == sorted(npz) == ["deltas", "magnitudes",
+                                          "successes"], (pth, npz)
+    assert pth["successes"].shape == (len(npz["successes"]), 1)
+    for k in npz:
+        assert pth[k].dtype == npz[k].dtype, k
+        np.testing.assert_array_equal(pth[k].reshape(npz[k].shape), npz[k])
+    log(f"(e) save_chunk_results(also_torch=True) on {name}'s "
+        f"{int(succ.sum())} successes: the .pth equals the .npz")
+
+
+def check_api_remainder(bc, gen_params, w, embs, frm_path, params, w_atk,
+                        root, gpu):
+    """Phase 14: steps (a)-(e), each step's seconds printed."""
+    steps = (
+        ("a", lambda: api_synthesize_from_z(bc, gen_params, gpu)),
+        ("b", lambda: api_pipeline(bc, gen_params, frm_path, w, embs)),
+        ("c", lambda: api_remat_grads(bc, params, w_atk, gpu)),
+        ("d", lambda: api_individual(bc, params, w_atk, gpu)))
+    secs, out = {}, None
+    for step, fn in steps:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        secs[step] = round(time.time() - t0, 2)
+    t0 = time.time()
+    api_chunk_files(root, out)
+    secs["e"] = round(time.time() - t0, 2)
+    log(f"phase 14 seconds per step: {secs} [{gpu_line()}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2098,6 +2384,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         check_weak_scaling(gpu)
         log(f"phase 13: {time.time() - t13:.1f} s")
+
+        t14 = time.time()
+        torch.cuda.empty_cache()
+        params = {"gen": gen_params, "frm": W.load_frm_params(frm_atk),
+                  "gallery": torch.as_tensor(W.load_embeddings(
+                      os.path.join(data, "embs_insightface.npz")),
+                      device="cuda")}
+        check_api_remainder(bc, gen_params, w, embs, frm_path, params, w_atk,
+                            root, gpu)
+        del params
+        log(f"phase 14: {time.time() - t14:.1f} s")
 
     records = []
     for name in CHAIN + STANDALONE:
