@@ -40,6 +40,38 @@ def _projection_lsigma2(t, w, b, mat_inv_diag):
     return t - w * mat_inv_diag[None, :] * lambd[:, None]
 
 
+def _sigma_norm(mat_diag, v):
+    return torch.sqrt(torch.clamp(G.sq_distance_diag(mat_diag, v), min=0.0))
+
+
+def _fab_iteration(logits_fn, x1, x0, labels, la_target, mat, mat_inv, *,
+                   alpha_max: float, eta: float, beta: float):
+    """One FAB iteration from the iterate x1 [B, k]: (the candidate, whether
+    it is adversarial, the next iterate). The candidate blends the
+    projections of x1 and x0 onto the hyperplane that linearises
+    diffy = logit(target) - logit(label) at x1; the next iterate steps
+    back toward x0 by ``beta`` wherever the candidate is adversarial. Any
+    float dtype (the tests run it in float64)."""
+    rows = torch.arange(x1.shape[0], device=x1.device)
+    x = x1.detach().requires_grad_(True)
+    with torch.enable_grad():
+        y = logits_fn(x)
+        diffy = -(y[rows, labels] - y[rows, la_target])
+        (dg,) = torch.autograd.grad(diffy.sum(), x)
+    b = -diffy.detach() + G.sq_distance_diag(mat, dg, x1)
+    d1 = _projection_lsigma2(x1, dg, b, mat_inv)
+    d2 = _projection_lsigma2(x0, dg, b, mat_inv)
+    a1 = torch.clamp(_sigma_norm(mat, d1), min=1e-8)
+    a2 = torch.clamp(_sigma_norm(mat, d2), min=1e-8)
+    alpha = torch.clamp(a1 / (a1 + a2), 0.0, alpha_max)[:, None]
+    cand = (x1 + eta * d1) * (1.0 - alpha) + (x0 + eta * d2) * alpha
+    cand = torch.where(torch.isnan(cand.sum(1))[:, None], x1, cand)
+    is_adv = logits_fn(cand).argmax(dim=1) != labels
+    # backward step toward the original point wherever adversarial
+    return cand, is_adv, torch.where(is_adv[:, None],
+                                     x0 + (cand - x0) * beta, cand)
+
+
 @torch.no_grad()
 def fab_targeted(
     logits_fn: Callable[[torch.Tensor], torch.Tensor],
@@ -62,58 +94,34 @@ def fab_targeted(
     k = region.dirs.shape[1]
     mat = region.red_ellipse_diag
     mat_inv = region.red_ellipse_diag_inv
-    rows = torch.arange(B, device=labels.device)
-
-    x0 = torch.zeros((B, k), device=labels.device)
+    x0 = torch.zeros((B, k), dtype=mat.dtype, device=labels.device)
     logits0 = logits_fn(x0)
     pred_mask = logits0.argmax(dim=1) == labels     # attack correct points
     # stable, as jnp.argsort: ties keep the JAX package's target order
     order = torch.argsort(logits0, dim=1, stable=True)
 
-    def sigma_norm(v):
-        return torch.sqrt(torch.clamp(G.sq_distance_diag(mat, v), min=0.0))
-
-    def diffy_and_grad(x1, la_target):
-        x = x1.detach().requires_grad_(True)
-        with torch.enable_grad():
-            y = logits_fn(x)
-            diffy = -(y[rows, labels] - y[rows, la_target])
-            (g,) = torch.autograd.grad(diffy.sum(), x)
-        return diffy.detach(), g
-
     def single_run(deltas0, la_target):
         x1 = x0 + deltas0
         adv = x0
-        res2 = torch.full((B,), 1e10, device=x0.device)
+        res2 = torch.full((B,), 1e10, dtype=x0.dtype, device=x0.device)
         for _ in range(n_iter):
-            df, dg = diffy_and_grad(x1, la_target)      # [B], [B, k]
-            b = -df + G.sq_distance_diag(mat, dg, x1)
-            d1 = _projection_lsigma2(x1, dg, b, mat_inv)
-            d2 = _projection_lsigma2(x0, dg, b, mat_inv)
-            a1 = torch.clamp(sigma_norm(d1), min=1e-8)
-            a2 = torch.clamp(sigma_norm(d2), min=1e-8)
-            alpha = torch.clamp(a1 / (a1 + a2), 0.0, alpha_max)[:, None]
-            cand = (x1 + eta * d1) * (1.0 - alpha) + (x0 + eta * d2) * alpha
-            nan_mask = torch.isnan(cand.sum(1))
-            x1 = torch.where(nan_mask[:, None], x1, cand)
-
-            is_adv = logits_fn(x1).argmax(dim=1) != labels
-            t = sigma_norm(x1 - x0)
+            cand, is_adv, x1 = _fab_iteration(
+                logits_fn, x1, x0, labels, la_target, mat, mat_inv,
+                alpha_max=alpha_max, eta=eta, beta=beta)
+            t = _sigma_norm(mat, cand - x0)
             better = is_adv & (t < res2)
-            adv = torch.where(better[:, None], x1, adv)
+            adv = torch.where(better[:, None], cand, adv)
             res2 = torch.where(better, t, res2)
-            # backward step toward the original point wherever adversarial
-            x1 = torch.where(is_adv[:, None], x0 + (x1 - x0) * beta, x1)
         return adv, res2
 
     best = x0
-    best_res = torch.full((B,), float("inf"), device=x0.device)
+    best_res = torch.full((B,), float("inf"), dtype=x0.dtype,
+                          device=x0.device)
     success = torch.zeros((B,), dtype=torch.bool, device=x0.device)
     for t, target_class in enumerate(range(2, n_target_classes + 2)):
         for restart in range(n_restarts):
             if init is not None:
-                d0 = init[t, restart].to(device=x0.device,
-                                         dtype=torch.float32)
+                d0 = init[t, restart].to(device=x0.device, dtype=x0.dtype)
             else:
                 d0 = G.init_deltas(gen, B, region.red_ellipse, lin_comb=True,
                                    on_surface=True)

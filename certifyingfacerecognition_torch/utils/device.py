@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -36,3 +38,22 @@ def device_name(device) -> str:
     """The name a result line gives its device: the GPU's name, or cpu."""
     dev = resolve_device(device)
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def device_label(device) -> str:
+    """The name a benchmark line gives its device: the card's name and
+    power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them, or cpu. nvidia-smi is asked by the
+    card's UUID: its indices follow the PCI order, not torch's, which
+    CUDA_VISIBLE_DEVICES renumbers."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return "cpu"
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    uuid = str(torch.cuda.get_device_properties(index).uuid)
+    if not uuid.startswith(("GPU-", "MIG-")):
+        uuid = "GPU-" + uuid
+    return subprocess.run(
+        ["nvidia-smi", f"--id={uuid}", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()

@@ -84,7 +84,15 @@ Runs straight through and raises (exit code != 0) on any failure:
    (d) run_standard_evaluation_individual (apgd-ce, square), every
    success re-verified, deltas feasible; (e) save_chunk_results
    (also_torch=True), the .pth read back equal to the .npz. Each step's
-   seconds are printed.
+   seconds are printed;
+15. the headline benchmark, ``python -m certifyingfacerecognition_torch.
+   bench``, in this process at its defaults (1024^2, bf16, batch 128, 10
+   batches, gallery 1000): the mc A/Bs CFR_TAIL=,bc and, with CFR_TAIL=bc,
+   CFR_TAIL_MIN_RES=512,256 (bench._run_ab); the attack mode's PGD (batch
+   20) with CFR_TAIL unset and bc, and FAB-t with bc and its peak memory.
+   Every value finite and positive, all four chain kernels launched under
+   CFR_TAIL=bc and none without it, the mc bc value within 0.5-2x phase
+   5's certify samples/s.
 
 The line before the last is one JSON object with a record per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -95,6 +103,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -132,10 +141,10 @@ SUMS_TOL = 1e-4
 
 
 def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    """The card's name and power limit, as nvidia-smi gives them."""
+    from certifyingfacerecognition_torch.utils.device import device_label
+
+    return device_label("cuda")
 
 
 def log(msg: str) -> None:
@@ -2214,6 +2223,123 @@ def check_api_remainder(bc, gen_params, w, embs, frm_path, params, w_atk,
     log(f"phase 14 seconds per step: {secs} [{gpu_line()}]")
 
 
+# Phase 15: the headline benchmark (certifyingfacerecognition_torch/bench.py)
+BENCH_MC_VS_CERTIFY = (0.5, 2.0)   # the mc bc value / phase 5's samples/s
+BENCH_ENV = ("CFR_TAIL", "CFR_TAIL_MIN_RES", "BENCH_ATTACK")
+
+
+def bench_value(row, gpu):
+    """Log a bench JSON line beside the card; its value must be finite and
+    positive."""
+    log(f"bench: {json.dumps(row)} [{gpu}]")
+    if not (math.isfinite(row["value"]) and row["value"] > 0):
+        raise AssertionError(f"bench value not finite and positive: {row}")
+    return row["value"]
+
+
+def bench_launches(bc, step, tail):
+    """The chain launches of one bench measurement at 1024^2: none with
+    CFR_TAIL unset; with CFR_TAIL=bc all four, in the tail's proportions:
+    for each final pass (final_stats, final_apply), one up layer per chain
+    block from CFR_TAIL_MIN_RES (default 512) to 1024^2 and one conv layer
+    per block but the last (2:1:1:1 at 512, 3:2:1:1 at 256)."""
+    if tail == "bc":
+        launches = require_chain(bc, step)
+        min_res = int(os.environ.get("CFR_TAIL_MIN_RES", "512"))
+        blocks = int(math.log2(1024 // min_res)) + 1
+        n = launches["final_apply"]
+        want = {"up_fused": blocks * n, "conv_fused": (blocks - 1) * n,
+                "final_stats": n, "final_apply": n}
+        if launches != want:
+            raise AssertionError(f"{step}: chain launches {launches} are not "
+                                 f"those of CFR_TAIL_MIN_RES={min_res}: {want}")
+        return launches
+    launches = chain_launches(bc)
+    if any(launches.values()):
+        raise AssertionError(f"{step}: chain kernels launched with CFR_TAIL "
+                             f"unset: {launches}")
+    return launches
+
+
+def check_bench(bc, certify_sps, root, gpu):
+    """Phase 15: the port's bench in this process at its defaults (1024^2,
+    bf16, batch 128, 10 batches, gallery 1000; attack batch 20): the mc
+    A/Bs CFR_TAIL=,bc and, with CFR_TAIL=bc, CFR_TAIL_MIN_RES=512,256
+    (bench._run_ab, writing bench_ab_<FLAG>.json in ``root``); PGD with
+    CFR_TAIL unset and bc; FAB-t with bc and its peak memory. The launch
+    counters are zeroed before each measurement and read after it."""
+    from certifyingfacerecognition_torch import bench
+
+    saved = {k: os.environ.get(k) for k in BENCH_ENV}
+    measure, mc = bench.measure, []
+
+    def counted(reps=3, device="cuda"):
+        bc.reset_launches()
+        row = measure(reps=reps, device=device)
+        tail = os.environ.get("CFR_TAIL", "")
+        mc.append((tail, os.environ.get("CFR_TAIL_MIN_RES"), bench_launches(
+            bc, f"bench mc CFR_TAIL={tail!r}", tail), row))
+        return row
+
+    cwd, t0, secs = os.getcwd(), time.time(), {}
+    os.chdir(root)
+    bench.measure = counted
+    try:
+        os.environ.pop("CFR_TAIL_MIN_RES", None)
+        tail_ab = bench._run_ab("CFR_TAIL=,bc")
+        secs["mc CFR_TAIL=,bc"] = round(time.time() - t0, 1)
+        t1 = time.time()
+        os.environ["CFR_TAIL"] = "bc"
+        res_ab = bench._run_ab("CFR_TAIL_MIN_RES=512,256")
+        secs["mc CFR_TAIL_MIN_RES=512,256"] = round(time.time() - t1, 1)
+        for name in ("CFR_TAIL", "CFR_TAIL_MIN_RES"):
+            if not os.path.exists(f"bench_ab_{name}.json"):
+                raise AssertionError(f"bench_ab_{name}.json not written")
+    finally:
+        bench.measure = measure
+        os.chdir(cwd)
+    for tail, min_res, launches, row in mc:
+        log(f"bench mc CFR_TAIL={tail!r} CFR_TAIL_MIN_RES={min_res}: "
+            f"launches {launches}")
+        bench_value(row, gpu)
+    plain, bc_512 = (r[3]["value"] for r in mc[:2])
+    log(f"bench mc bc / plain: {bc_512 / plain:.3f} (ratio_vs_first "
+        f"{tail_ab['ratio_vs_first']}); CFR_TAIL_MIN_RES 256 / 512: "
+        f"{res_ab['ratio_vs_first']} [{gpu}]")
+    lo, hi = BENCH_MC_VS_CERTIFY
+    if not lo * certify_sps <= bc_512 <= hi * certify_sps:
+        raise AssertionError(f"bench mc bc {bc_512} samples/s is not within "
+                             f"{lo}-{hi}x phase 5's certify {certify_sps:.1f}")
+    log(f"bench mc bc {bc_512} samples/s against phase 5's certify "
+        f"{certify_sps:.1f}: {bc_512 / certify_sps:.3f}x")
+
+    try:
+        # the attacks at the bench's defaults: the tail from 512^2
+        os.environ.pop("CFR_TAIL_MIN_RES", None)
+        for attack, tail in (("pgd", ""), ("pgd", "bc"), ("fab-t", "bc")):
+            os.environ["BENCH_ATTACK"] = attack
+            os.environ["CFR_TAIL"] = tail
+            bc.reset_launches()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.time()
+            row = bench.measure_attack()
+            step = f"bench attack {attack} CFR_TAIL={tail!r}"
+            secs[step] = round(time.time() - t1, 1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"{step}: launches {bench_launches(bc, step, tail)}, peak "
+                f"{peak:.2f} GiB")
+            bench_value(row, gpu)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"phase 15 seconds per step: {secs}, {time.time() - t0:.1f} s in "
+        f"all [{gpu_line()}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2395,6 +2521,9 @@ def main() -> int:
                             root, gpu)
         del params
         log(f"phase 14: {time.time() - t14:.1f} s")
+
+        torch.cuda.empty_cache()
+        check_bench(bc, samples / secs, root, gpu)
 
     records = []
     for name in CHAIN + STANDALONE:

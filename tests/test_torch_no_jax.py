@@ -40,6 +40,7 @@ def test_scan_covers_the_port():
             "gallery_bench.py", "pkl_converter.py", "validate_conversion.py",
             "certified_curve.py", "adaptive_study.py", "resolution_study.py",
             "spectral_study.py", "mix_study.py", "coverage_sweep.py",
-            "weak_scaling.py"} <= names
+            "weak_scaling.py", "bench.py"} <= names
     assert ROOT / "certifyingfacerecognition_torch" / "tools" / \
         "pkl_converter.py" in FILES
+    assert ROOT / "certifyingfacerecognition_torch" / "bench.py" in FILES
