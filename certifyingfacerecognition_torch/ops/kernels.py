@@ -39,6 +39,7 @@ _SIGNATURES = {
         "cfr_conv_rgb_apply": [_I] + [_P] * 7 + [_I] * 5 + [_P],
         "cfr_up_stats": [_I, _P, _P, _P, _P] + [_I] * 5 + [_P],
         "cfr_up_apply": [_I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+        "cfr_up_occupancy": [_I, _I, _I, _P, _P],
     },
 }
 

@@ -256,19 +256,32 @@ def pack_mma_weights(k: torch.Tensor) -> torch.Tensor:
 
 
 def pack_up_weights(k4: torch.Tensor) -> torch.Tensor:
-    """k4 [4, 4, Ci, Co] -> the bf16 up kernel's packed weights
-    [4, 4, Co/8, Ci/16, 32, 4] (``pack_mma_weights``)."""
+    """k4 [4, 4, Ci, Co] -> the bf16 up kernel's weights, the B operands of
+    its ``wgmma.m64n16k16`` (K = 16 input channels, N = 16 output channels,
+    K-major without swizzle: 8x8 core matrices of 128 bytes):
+    [ceil(Co/16), 2, Ci/16, 2, 4, 2, 2, 8, 8]. Entry
+    [cs, pr, s, a, kw, ng, kc, r, e] is k4[pr + 2a, kw, 16s + 8kc + e,
+    16cs + 8ng + r], 0 for an output channel >= Co: per slice of 16 output
+    channels cs, output row parity pr and k16 step s, the 8 taps that rows
+    of that parity read, 4 KB in one piece (one bulk copy per stage). The
+    values are cast to bf16 (exact for weights that already hold bf16
+    values)."""
     if tuple(k4.shape[:2]) != (4, 4) or k4.shape[2] % 16 or k4.shape[3] % 8:
         raise ValueError(f"pack_up_weights takes [4, 4, Ci, Co] with Ci a "
                          f"multiple of 16 and Co of 8, got {tuple(k4.shape)}")
-    return pack_mma_weights(k4)
+    ci, co = k4.shape[2:]
+    ncs = -(-co // 16)
+    kk = F.pad(k4.to(torch.bfloat16), (0, 16 * ncs - co))
+    # kh = 2a + pr, input channel 16s + 8kc + e, output channel 16cs + 8ng + r
+    kk = kk.reshape(2, 2, 4, ci // 16, 2, 8, ncs, 2, 8)
+    return kk.permute(6, 1, 3, 0, 2, 7, 4, 8, 5).contiguous()
 
 
 def _layer_args(x, weight, nb, aff, up):
     """_cuda_args of an up-layer (``up``) or conv-layer launch, returning
     (dtype code, weights, Co, nb, aff, stream). The bf16 kernels run on
-    the tensor cores: they take their weights packed (pack_mma_weights)
-    and need Ci a multiple of 16."""
+    the tensor cores: they take their weights packed (pack_up_weights,
+    pack_mma_weights) and need Ci a multiple of 16."""
     h, w, ci, _ = x.shape
     code, kf, nbt, af, stream = _cuda_args(
         x, weight, nb, aff, (4, 4) if up else (3, 3),
@@ -278,7 +291,10 @@ def _layer_args(x, weight, nb, aff, up):
         if ci % 16:
             raise ValueError(f"the bf16 {'up' if up else 'conv'} kernel needs "
                              f"input channels a multiple of 16, got {ci}")
-        kf = pack_mma_weights(kf)
+        kf = pack_up_weights(kf) if up else pack_mma_weights(kf)
+        if up and nbt.data_ptr() % 16:
+            # the up kernel loads nb by TMA, from a 16-byte aligned address
+            nbt = nbt.clone()
     return code, kf, co, nbt, af, stream
 
 

@@ -6,10 +6,13 @@ Runs straight through and raises (exit code != 0) on any failure:
 
 1. environment: the card's name and power limit, torch and CUDA versions;
 2. build: compiles the hand-written kernels from csrc/ (nvcc, sm_90a),
-   prints ptxas's registers and spills, and counts the tensor-core (HMMA)
-   instructions of each up_kernel and conv3x3_kernel instantiation in the
-   library's SASS (cuobjdump); every bf16 one must have some and no
-   spill, every f32 one none;
+   prints ptxas's registers and spills, and counts the tensor-core and
+   asynchronous-copy instructions of each up_wgmma_kernel, up_kernel and
+   conv3x3_kernel instantiation in the library's SASS (cuobjdump): every
+   bf16 up one must hold wgmma (HGMMA), TMA (UTMALDG) and cp.async
+   (LDGSTS), every bf16 conv one mma.sync (HMMA), neither a spill, every
+   f32 one no tensor-core instruction; prints the bf16 up kernel's shared
+   memory and blocks per SM;
 3. each kernel of the synthesis tail against its plain PyTorch version at
    the 1024^2 tail's shapes (B = 8), bf16 and f32: the four chain kernels
    with and without the input affine (final_stats and final_apply also at
@@ -17,7 +20,9 @@ Runs straight through and raises (exit code != 0) on any failure:
    passes of the standalone half-layers, the up layer also at
    CFR_TAIL_MIN_RES=128's first up layer (64^2 -> 128^2, 256 -> 128
    channels) and the conv layers at its widest shapes (128^2 128 -> 128,
-   256^2 64 -> 64), and the whole kernel chain against a plain chain;
+   256^2 64 -> 64), the three up kernels at B = 12, 20 and 40 on a 74^2
+   output grid (the bf16 kernel's cp.async staging, a ragged sample group
+   and a ragged strip), and the whole kernel chain against a plain chain;
 4. each kernel's time at B = 128 (CUDA events, median of 5) beside its
    plain version's time, its roofline bound and the time of cuDNN's
    convolution of the same layer (the library yardstick);
@@ -243,25 +248,34 @@ WIDE_CONV_LAYERS = [(name, "conv", h, c, c) for h, c in ((128, 128),
 # fast pass), run by final_stats and final_apply at 32 -> 32
 FAST_PASS_LAYERS = [(name, "conv", 512, 32, 32)
                     for name in ("final_stats", "final_apply")]
+# checked, not timed: the up kernels at the samples of a batch that TMA
+# cannot describe (B % 8 != 0: the bf16 kernel's cp.async staging, B = 12,
+# the attack bench's 20) and at B = 40 (TMA, a ragged sample group), on a
+# 74^2 output grid (74 is no multiple of the kernel's 6-column strip)
+UP_RAGGED_B = (12, 20, 40)
+UP_RAGGED_LAYERS = [(name, "up", 37, 64, 32)
+                    for name in ("up_fused", "up_stats", "up_apply")]
 
 
 def check_kernels(bc, gen):
     """Phase 3: every kernel against its plain version on the card."""
     worst = {}
     wide = WIDE_UP_LAYERS + WIDE_CONV_LAYERS + FAST_PASS_LAYERS
-    cases = [(L, aff) for L in LAYERS + wide
+    cases = [(L, aff, 8) for L in LAYERS + wide
              if L[0] in CHAIN for aff in (False, True)] + \
-        [(L, False) for L in STANDALONE_LAYERS + wide
-         if L[0] in STANDALONE]
-    for (name, kind, h, ci, co), apply_aff in cases:
+        [(L, False, 8) for L in STANDALONE_LAYERS + wide
+         if L[0] in STANDALONE] + \
+        [(L, aff, b) for L in UP_RAGGED_LAYERS for b in UP_RAGGED_B
+         for aff in ((False, True) if L[0] in CHAIN else (False,))]
+    for (name, kind, h, ci, co), apply_aff, b in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            a = layer_inputs(kind, h, ci, co, 8, dtype, gen)
+            a = layer_inputs(kind, h, ci, co, b, dtype, gen)
             got = run_kernel(bc, name, a, apply_aff)
             want = run_kernel(bc, name, a, apply_aff, plain=True)
             torch.cuda.synchronize()
             for what, g, w, tol in kernel_outputs(name, got, want, dtype):
                 mx, med, scale, ok = max_err(g, w, tol)
-                log(f"check {name:14s} h={h:4d} {ci:3d}->{co:3d} "
+                log(f"check {name:14s} h={h:4d} {ci:3d}->{co:3d} B={b:3d} "
                     f"{str(dtype)[6:]:8s} aff={int(apply_aff)} {what:4s} "
                     f"max|err| {mx:.3e} median {med:.3e} "
                     f"max|plain| {scale:.3e} tol {tol:.1e}*max|plain| "
@@ -279,22 +293,26 @@ def check_kernels(bc, gen):
 
 
 _KERNEL_NAME = re.compile(
-    r"(up_kernel|conv3x3_kernel)I(13__nv_bfloat16|f)Li(\d)ELb(\d)E")
+    r"(up_wgmma_kernel|up_kernel|conv3x3_kernel)I(13__nv_bfloat16|f)?"
+    r"Li(\d)ELb(\d)E")
+# SASS opcodes counted per instantiation: mma.sync (HMMA), wgmma (HGMMA),
+# TMA tensor loads (UTMALDG), cp.async (LDGSTS)
+_OPS = ("HMMA", "HGMMA", "UTMALDG", "LDGSTS")
 
 
 def _kernel_name(mangled):
     """"conv3x3_kernel<bf16, MODE 0, AFF 1>" for a mangled instantiation of
-    up_kernel or conv3x3_kernel, else None."""
+    up_wgmma_kernel (bf16 only), up_kernel or conv3x3_kernel, else None."""
     m = _KERNEL_NAME.search(mangled)
     return None if m is None else (
-        f"{m[1]}<{'bf16' if m[2] != 'f' else 'f32'}, MODE {m[3]}, "
+        f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, MODE {m[3]}, "
         f"AFF {m[4]}>")
 
 
-def kernel_hmma(lib_path):
-    """{"up_kernel<T, MODE, AFF>" or "conv3x3_kernel<...>": HMMA
-    instructions} of every instantiation in the built library's SASS
-    (cuobjdump -sass)."""
+def kernel_ops(lib_path):
+    """{"up_wgmma_kernel<bf16, MODE, AFF>", "up_kernel<f32, ...>" or
+    "conv3x3_kernel<...>": {opcode: count}} of every instantiation in the
+    built library's SASS (cuobjdump -sass), for the opcodes of _OPS."""
     from certifyingfacerecognition_torch.ops import kernels
 
     sass = subprocess.run([kernels.cuda_tool("cuobjdump"), "-sass",
@@ -305,9 +323,15 @@ def kernel_hmma(lib_path):
         if "Function :" in line:
             fn = _kernel_name(line)
             if fn is not None:
-                counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
+                counts[fn] = dict.fromkeys(_OPS, 0)
+                counts[fn]["setmaxnreg"] = []
+        elif fn is not None:
+            ops = re.findall(r"\b([A-Z][A-Z0-9]+)(?:\.|\s)", line)
+            for op in _OPS:
+                counts[fn][op] += ops.count(op)
+            m = re.search(r"USETMAXREG\S* .*?(0x[0-9a-f]+)", line)
+            if m:   # a warpgroup's register count after setmaxnreg
+                counts[fn]["setmaxnreg"].append(int(m[1], 16))
     return counts
 
 
@@ -332,35 +356,84 @@ def kernel_spills(ptxas_log):
     return {k: tuple(v) for k, v in out.items()}
 
 
+def up_occupancy(lib, fn):
+    """[(Ci, dynamic shared memory bytes, blocks per SM)] of an
+    up_wgmma_kernel instantiation at the tail's Ci = 64 and 32."""
+    import ctypes
+
+    m = re.search(r"MODE (\d), AFF (\d)", fn)
+    out = []
+    for ci in (64, 32):
+        smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+        rc = lib.cfr_up_occupancy(int(m[1]), int(m[2]), ci,
+                                  ctypes.byref(smem), ctypes.byref(blocks))
+        if rc != 0:
+            raise AssertionError(f"cfr_up_occupancy failed ({rc}) for {fn}")
+        out.append((ci, smem.value, blocks.value))
+    return out
+
+
+def _required_ops(fn):
+    """The opcodes an instantiation must hold (a positive count) and must
+    not: the bf16 up kernel wgmma, TMA loads and the ragged path's
+    cp.async; the bf16 conv kernel mma.sync; the f32 kernels none."""
+    if fn.startswith("up_wgmma_kernel"):
+        return ("HGMMA", "UTMALDG", "LDGSTS"), ("HMMA",)
+    if "bf16" in fn:
+        return ("HMMA",), ("HGMMA",)
+    return (), ("HMMA", "HGMMA")
+
+
 def check_build(kernels):
     """Phase 2: build the library (again, if it was cached, for ptxas's
-    log), then every bf16 instantiation of both kernels must hold HMMA
-    instructions and spill nothing, and every f32 one hold none."""
+    log), then every bf16 up_wgmma_kernel instantiation must hold wgmma
+    (HGMMA), TMA (UTMALDG) and cp.async (LDGSTS) instructions, every bf16
+    conv3x3_kernel one mma.sync (HMMA), both spill nothing, and every f32
+    one hold no tensor-core instruction. Prints each instantiation's
+    registers, and the up kernel's shared memory and blocks per SM."""
     t0 = time.time()
     path = kernels.build("synthesis_tail_bc")
     if "synthesis_tail_bc" not in kernels.BUILD_LOG:
         path = kernels.build("synthesis_tail_bc", force=True)
-    kernels.library("synthesis_tail_bc")
+    lib = kernels.library("synthesis_tail_bc")
     info = kernels.BUILD_LOG["synthesis_tail_bc"]
     log(f"build: {time.time() - t0:.1f} s ({info['cmd']})")
+    for line in info["log"].splitlines():
+        if "warning" in line.lower():
+            log(f"  ptxas: {line.strip()}")
     spills = kernel_spills(info["log"])
-    hmma = kernel_hmma(path)
-    for fn in sorted(hmma):
+    ops = kernel_ops(path)
+    for fn in sorted(ops):
         regs, st, ld = spills.get(fn, (None, None, None))
-        log(f"  {fn}: {hmma[fn]} HMMA instructions, {regs} registers, "
-            f"spill stores {st} B, loads {ld} B")
-    kinds = {(fn.split("<")[0], "bf16" in fn) for fn in hmma}
-    if kinds != {(k, tc) for k in ("up_kernel", "conv3x3_kernel")
-                 for tc in (False, True)}:
-        raise AssertionError(f"kernel instantiations missing: {hmma}")
-    bad = [fn for fn, n in hmma.items() if (n > 0) != ("bf16" in fn)]
+        occ = ""
+        if fn.startswith("up_wgmma_kernel"):
+            occ = "; " + ", ".join(
+                f"Ci {ci}: {smem} B shared memory, {blocks} blocks per SM"
+                for ci, smem, blocks in up_occupancy(lib, fn))
+        counts = ", ".join(f"{ops[fn][op]} {op}" for op in _OPS)
+        split = ops[fn]["setmaxnreg"]
+        if split:
+            split = f" (then setmaxnreg to {' and '.join(map(str, split))})"
+        log(f"  {fn}: {counts}; {regs} registers{split or ''}, spill "
+            f"stores {st} B, loads {ld} B{occ}")
+    kinds = {(fn.split("<")[0], "bf16" in fn) for fn in ops}
+    if kinds != {("up_wgmma_kernel", True), ("up_kernel", False),
+                 ("conv3x3_kernel", True), ("conv3x3_kernel", False)}:
+        raise AssertionError(f"kernel instantiations missing: {ops}")
+    bad = []
+    for fn, counts in ops.items():
+        need, forbid = _required_ops(fn)
+        if any(counts[op] == 0 for op in need) or \
+                any(counts[op] > 0 for op in forbid):
+            bad.append(fn)
     # an instantiation missing from ptxas's log counts as spilling
-    bad += [fn for fn in hmma if "bf16" in fn
+    bad += [fn for fn in ops if "bf16" in fn
             and spills.get(fn, (0, 1, 1))[1:] != (0, 0)]
     if bad:
-        raise AssertionError(f"a bf16 kernel without tensor-core "
-                             f"instructions or with a spill, or an f32 one "
-                             f"with them: {bad}")
+        raise AssertionError(f"a bf16 kernel without its tensor-core or "
+                             f"asynchronous-copy instructions or with a "
+                             f"spill, or an f32 one with tensor-core "
+                             f"instructions: {bad}")
 
 
 def plain_chain(bc, x, blocks, eps=1e-8):
@@ -1475,7 +1548,8 @@ def check_attack_mesh(main, bc, data, frm_path, secs_bc, gpu):
 def check_attack_profile(main, bc, data, frm_path, gpu):
     """Phase 12 (cwd: the attack runs' root): phase 9's apgd-ce run again
     with --profile-dir. The trace file must exist, its kernel events must
-    name the chain kernels' CUDA functions (up_kernel, conv3x3_kernel),
+    name the chain kernels' CUDA functions (up_wgmma_kernel,
+    conv3x3_kernel),
     and all four chain counters must rise. Prints the five device
     operations with the most total time, and the kernels' summed time
     over the span from the first kernel's start to the last one's end."""
@@ -1504,7 +1578,7 @@ def check_attack_profile(main, bc, data, frm_path, gpu):
     total = {}
     for e in kernels:
         total[e["name"]] = total.get(e["name"], 0.0) + e["dur"] / 1e3
-    for want in ("up_kernel", "conv3x3_kernel"):
+    for want in ("up_wgmma_kernel", "conv3x3_kernel"):
         if not any(want in name for name in total):
             raise AssertionError(f"the trace names no {want} kernel (it "
                                  f"names {len(total)} kernels)")
@@ -1532,7 +1606,8 @@ def check_attack_profile(main, bc, data, frm_path, gpu):
 def _kernel_group(name):
     """The family of a CUDA kernel's name in a trace."""
     low = name.lower()
-    if "up_kernel" in name or "conv3x3_kernel" in name:
+    if any(k in name for k in ("up_wgmma_kernel", "up_kernel",
+                               "conv3x3_kernel")):
         return "chain kernels (csrc)"
     if any(t in low for t in ("cudnn", "xmma", "cutlass", "gemm", "conv")):
         return "cuDNN / cuBLAS convolutions, GEMMs"

@@ -118,14 +118,17 @@ def _small_grid_sums_close(got, want, t, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("ci,co,b", [(64, 32, 40), (128, 64, 40),
-                                     (64, 32, 12)])
-def test_up_kernels_match_plain_ragged(gen, dtype, ci, co, b):
+@pytest.mark.parametrize("h,ci,co,b", [
+    (5, 64, 32, 40), (5, 128, 64, 40), (5, 64, 32, 12), (5, 64, 32, 20),
+    (5, 64, 32, 10), (5, 32, 16, 7), (7, 32, 16, 40), (7, 64, 24, 20)])
+def test_up_kernels_match_plain_ragged(gen, dtype, h, ci, co, b):
     """The three up-kernel entry points at the tail's widths and at
-    CFR_TAIL_MIN_RES=256's (Ci = 128), with ragged tiles (H = 5: a 10x10
-    output grid in 8x8 tiles) and a ragged sample group (B = 40; B = 12
-    also takes the bf16 kernel's unaligned staging path)."""
-    h = 5
+    CFR_TAIL_MIN_RES=256's (Ci = 128), with ragged strips (H = W = 5: a
+    10x10 output grid in strips of 6 columns and tiles of 8; 7: 14
+    columns), ragged sample groups (B = 40: TMA; B % 8 != 0 takes the bf16
+    kernel's own staging: cp.async of 8 bytes at B = 12, 20, of 4 bytes at
+    B = 10, loads through registers at B = 7) and a ragged channel slice
+    (Co = 24: the bf16 kernel's slices of 16)."""
     x = _randn((h, h, ci, b), gen).to(dtype)
     aff = torch.stack([_randn((ci, b), gen, 0.3) + 1, _randn((ci, b), gen)])
     k4 = _randn((4, 4, ci, co), gen, (2.0 / (9 * ci)) ** 0.5)
@@ -145,6 +148,28 @@ def test_up_kernels_match_plain_ragged(gen, dtype, ci, co, b):
     assert bc.LAUNCHES["up_fused"] == before["up_fused"] + 2
     assert all(bc.LAUNCHES[n] == before[n] + 1
                for n in ("up_stats", "up_apply"))
+
+
+@pytest.mark.parametrize("b", [12, 40])
+def test_up_kernels_match_plain_at_64_256_to_128(gen, b):
+    """The bf16 up kernels at the first up layer of CFR_TAIL_MIN_RES=128's
+    tail (64^2 -> 128^2, 256 -> 128 channels: 16 k16 steps per row, 8
+    channel slices) on both staging paths (B = 40 TMA, 12 cp.async)."""
+    h, ci, co = 64, 256, 128
+    x = _randn((h, h, ci, b), gen).bfloat16()
+    aff = torch.stack([_randn((ci, b), gen, 0.3) + 1, _randn((ci, b), gen)])
+    k4 = _randn((4, 4, ci, co), gen, (2.0 / (9 * ci)) ** 0.5)
+    nb = _randn((2 * h, 2 * h, co), gen, 0.1)
+    coefs = torch.stack([_randn((co, b), gen, 0.3) + 1, _randn((co, b), gen)])
+    tol = TOL[torch.bfloat16]
+    for apply_aff in (True, False):
+        t, s = bc.up_fused(x, k4, nb, aff, apply_aff=apply_aff)
+        tr, sr = bc.up_fused_ref(x, k4, nb, aff, apply_aff=apply_aff)
+        _close(t, tr, tol)
+        _sums_close(s, sr)
+    _sums_close(bc.up_stats(x, k4, nb), bc.up_stats_ref(x, k4, nb))
+    _close(bc.up_apply(x, k4, nb, coefs), bc.up_apply_ref(x, k4, nb, coefs),
+           tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -209,14 +234,16 @@ def test_final_kernels_match_plain_at_512(gen, dtype, apply_aff):
                for n in ("final_stats", "final_apply"))
 
 
-@pytest.mark.parametrize("h,ci,co", [(16, 32, 16), (5, 64, 32)])
-def test_kernels_are_deterministic(gen, h, ci, co):
+@pytest.mark.parametrize("h,ci,co,b", [(16, 32, 16, 40), (5, 64, 32, 40),
+                                      (5, 64, 32, 20)])
+def test_kernels_are_deterministic(gen, h, ci, co, b):
     """The fixed-point sums do not depend on the order of the atomic adds,
     the bf16 kernels' tensor-core convolutions and sums run in a fixed
     order per thread, and the bf16 ToRGB sums over a quad's lanes in a
     fixed order, so a second launch on the same inputs gives the same bits
-    (also at ragged tiles, h = 5)."""
-    b = 40
+    (also at ragged tiles, h = 5, and on the up kernel's cp.async staging,
+    B = 20), for the chain kernels and up_stats, up_apply, conv_stats and
+    conv_rgb_apply."""
     x = _randn((h, h, ci, b), gen).to(torch.bfloat16)
     aff = torch.stack([_randn((ci, b), gen, 0.3) + 1, _randn((ci, b), gen)])
     aff2 = torch.stack([_randn((co, b), gen, 0.3) + 1, _randn((co, b), gen)])
@@ -228,7 +255,8 @@ def test_kernels_are_deterministic(gen, h, ci, co):
     def run():
         t, s = bc.up_fused(x, k4, nb, aff)
         return (t, s, *bc.conv_fused(t, k, nbc, aff2),
-                bc.up_stats(x, k4, nb), bc.conv_stats(t, k, nbc),
+                bc.up_stats(x, k4, nb), bc.up_apply(x, k4, nb, coefs),
+                bc.conv_stats(t, k, nbc),
                 bc.final_apply(t, k, nbc, aff2, coefs, w_rgb, b_rgb),
                 bc.conv_rgb_apply(t, k, nbc, coefs, w_rgb, b_rgb))
 
