@@ -1,0 +1,7 @@
+"""``device.idle_share.attack`` in the FAB-t cells: it moves their own
+``attack_ids_per_min.fabt``."""
+
+from cfr_bench import harness
+
+read = harness.load_module(
+    harness.HERE / "metrics" / "device.idle_share.attack.py").read
