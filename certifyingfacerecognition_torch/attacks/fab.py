@@ -15,6 +15,11 @@ the budget; they are reported, not clipped).
 
 The iterations are a Python loop over tensors on the device; the
 per-target gradient of diffy is one autograd.grad of the batch sum.
+
+Spans (utils/profiling.span): ``attack.step`` over each iteration with
+its best-adversary update, and inside it ``attack.backward`` (the
+gradient), ``attack.project`` (the two projections and their norms) and
+``attack.update`` (the blend, and the best-adversary update).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from ..ops import geometry as G
+from ..utils.profiling import span
 
 
 class FABResult(NamedTuple):
@@ -57,15 +63,18 @@ def _fab_iteration(logits_fn, x1, x0, labels, la_target, mat, mat_inv, *,
     with torch.enable_grad():
         y = logits_fn(x)
         diffy = -(y[rows, labels] - y[rows, la_target])
-        (dg,) = torch.autograd.grad(diffy.sum(), x)
-    b = -diffy.detach() + G.sq_distance_diag(mat, dg, x1)
-    d1 = _projection_lsigma2(x1, dg, b, mat_inv)
-    d2 = _projection_lsigma2(x0, dg, b, mat_inv)
-    a1 = torch.clamp(_sigma_norm(mat, d1), min=1e-8)
-    a2 = torch.clamp(_sigma_norm(mat, d2), min=1e-8)
-    alpha = torch.clamp(a1 / (a1 + a2), 0.0, alpha_max)[:, None]
-    cand = (x1 + eta * d1) * (1.0 - alpha) + (x0 + eta * d2) * alpha
-    cand = torch.where(torch.isnan(cand.sum(1))[:, None], x1, cand)
+        with span("attack.backward", exclusive=True):
+            (dg,) = torch.autograd.grad(diffy.sum(), x)
+    with span("attack.project"):
+        b = -diffy.detach() + G.sq_distance_diag(mat, dg, x1)
+        d1 = _projection_lsigma2(x1, dg, b, mat_inv)
+        d2 = _projection_lsigma2(x0, dg, b, mat_inv)
+        a1 = torch.clamp(_sigma_norm(mat, d1), min=1e-8)
+        a2 = torch.clamp(_sigma_norm(mat, d2), min=1e-8)
+    with span("attack.update"):
+        alpha = torch.clamp(a1 / (a1 + a2), 0.0, alpha_max)[:, None]
+        cand = (x1 + eta * d1) * (1.0 - alpha) + (x0 + eta * d2) * alpha
+        cand = torch.where(torch.isnan(cand.sum(1))[:, None], x1, cand)
     is_adv = logits_fn(cand).argmax(dim=1) != labels
     # backward step toward the original point wherever adversarial
     return cand, is_adv, torch.where(is_adv[:, None],
@@ -105,13 +114,15 @@ def fab_targeted(
         adv = x0
         res2 = torch.full((B,), 1e10, dtype=x0.dtype, device=x0.device)
         for _ in range(n_iter):
-            cand, is_adv, x1 = _fab_iteration(
-                logits_fn, x1, x0, labels, la_target, mat, mat_inv,
-                alpha_max=alpha_max, eta=eta, beta=beta)
-            t = _sigma_norm(mat, cand - x0)
-            better = is_adv & (t < res2)
-            adv = torch.where(better[:, None], cand, adv)
-            res2 = torch.where(better, t, res2)
+            with span("attack.step", outer=True):
+                cand, is_adv, x1 = _fab_iteration(
+                    logits_fn, x1, x0, labels, la_target, mat, mat_inv,
+                    alpha_max=alpha_max, eta=eta, beta=beta)
+                with span("attack.update"):
+                    t = _sigma_norm(mat, cand - x0)
+                    better = is_adv & (t < res2)
+                    adv = torch.where(better[:, None], cand, adv)
+                    res2 = torch.where(better, t, res2)
         return adv, res2
 
     best = x0

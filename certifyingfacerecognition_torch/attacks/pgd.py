@@ -10,6 +10,11 @@ Semantics kept from the JAX package and the reference:
   * after the last evaluated iterate one more (unused) step is taken;
   * the optimiser state is reset at each restart, and the deltas are
     projected back into the feasible region after every step.
+
+Spans (utils/profiling.span): ``attack.step`` over each iterate, and
+inside it ``attack.backward`` (the gradient, with the checkpoint's
+recompute), ``attack.update`` (the success bookkeeping and the optimiser
+step) and ``attack.project``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from ..constants import EMB_SIZE
 from ..ops import geometry as G
+from ..utils.profiling import span
 from .losses import compute_loss
 
 
@@ -118,18 +124,24 @@ def find_adversaries_pgd(
                 on_surface=rand_init_on_surf)
         state = opt.init(deltas)
         for _ in range(iters):
-            d = deltas.detach().requires_grad_(True)
-            with torch.enable_grad():
-                pert = G.matmul_f32(d, dirs_t) if lin_comb else d
-                dists = dists_fn(lat_codes + pert)
-                loss = compute_loss(dists, labels, loss_type=loss_type,
-                                    use_probs=loss_type != "dlr")
-                (grads,) = torch.autograd.grad(loss, d)
-            with torch.no_grad():
-                success = dists.argmin(dim=1) != labels
-                best = torch.where((success & ~found)[:, None], deltas, best)
-                found = found | success
-                deltas = project(opt.step(deltas, grads, state))
+            with span("attack.step", outer=True):
+                d = deltas.detach().requires_grad_(True)
+                with torch.enable_grad():
+                    pert = G.matmul_f32(d, dirs_t) if lin_comb else d
+                    dists = dists_fn(lat_codes + pert)
+                    loss = compute_loss(dists, labels, loss_type=loss_type,
+                                        use_probs=loss_type != "dlr")
+                    with span("attack.backward", exclusive=True):
+                        (grads,) = torch.autograd.grad(loss, d)
+                with torch.no_grad():
+                    with span("attack.update"):
+                        success = dists.argmin(dim=1) != labels
+                        best = torch.where((success & ~found)[:, None],
+                                           deltas, best)
+                        found = found | success
+                        stepped = opt.step(deltas, grads, state)
+                    with span("attack.project"):
+                        deltas = project(stepped)
     return PGDResult(best, found, check_deltas(best, region, lin_comb))
 
 

@@ -8,7 +8,8 @@ logs,figs}) as the JAX CLI: PGD (--attack-type manual, the reference's
 default), the AutoAttack family (apgd-ce, apgd-dlr, apgd-t, fab-t, square
 and the autoattack, autoattack-rand and autoattack-plus presets) and
 --run-checks, for every --face-recog-method; --profile-dir traces the
-chunks with torch.profiler.
+chunks with torch.profiler (utils/profiling.trace: the trace, and each
+span's calls, host and self ms beside it).
 
 --mesh or --multihost: one process per device, run by torchrun or with
 --multihost (parallel/mesh.init_distributed; NCCL on cuda, gloo on cpu),

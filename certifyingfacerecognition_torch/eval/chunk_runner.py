@@ -37,6 +37,7 @@ from ..constants import ATTRS
 from ..models.pipeline import make_lat2embs
 from ..ops import distances as D
 from ..ops import geometry as G
+from ..utils.profiling import span
 from . import artifacts, ranking
 
 
@@ -54,7 +55,8 @@ def make_dists_fn(frs_method: str, resolution: int, dtype=torch.float32,
 
     def dists(params, w):
         embs = embed(params["gen"], params["frm"], w).float()
-        return D.cdist(embs, params["gallery"], frs_method)
+        with span("gallery_head"):
+            return D.cdist(embs, params["gallery"], frs_method)
 
     if not remat:
         return dists
@@ -76,7 +78,9 @@ def make_predict_fn(frs_method: str, resolution: int, dtype=torch.float32
     def predict(params, w):
         with torch.inference_mode():
             embs = embed(params["gen"], params["frm"], w).float()
-            return D.argmin_dist_refined(embs, params["gallery"], frs_method)
+            with span("gallery_head"):
+                return D.argmin_dist_refined(embs, params["gallery"],
+                                             frs_method)
 
     return predict
 

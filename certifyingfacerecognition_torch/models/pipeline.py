@@ -3,6 +3,10 @@ certifyingfacerecognition_tpu/models/pipeline.py):
 
     w -> truncation -> synthesis -> [0,1] postprocess -> bilinear resize ->
     normalise -> FRS -> embeddings (-> exact nearest gallery identity)
+
+Spans (utils/profiling.span): ``frm`` over the resize, normalisation and
+backbone, ``gallery_head`` over the nearest-identity search; the
+synthesis's own are in models/stylegan.synthesis_apply.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from ..ops import distances as D
 from ..ops import geometry as G
 from ..ops.resize import transform_for_frs, transform_for_frs_cb
 from ..utils.device import f32_exact_math, resolve_device, tree_map
+from ..utils.profiling import span
 
 
 def frm_apply(frs_method: str, frm_params: Dict, x: torch.Tensor, *,
@@ -38,11 +43,12 @@ def make_lat2embs(frs_method: str, resolution: int, dtype=torch.float32
     def embed(gen_params, frm_params, w):
         img = stylegan.synthesize_from_w(gen_params, w, resolution=resolution,
                                          dtype=dtype, cb_out=use_cb)
-        if use_cb:
-            x = transform_for_frs_cb(img, img_size, MEAN, STD)
-        else:
-            x = transform_for_frs(img, img_size, MEAN, STD)
-        return frm_apply(frs_method, frm_params, x, dtype=dtype)
+        with span("frm"):
+            if use_cb:
+                x = transform_for_frs_cb(img, img_size, MEAN, STD)
+            else:
+                x = transform_for_frs(img, img_size, MEAN, STD)
+            return frm_apply(frs_method, frm_params, x, dtype=dtype)
 
     return embed
 
@@ -125,7 +131,9 @@ class FacePipeline:
         with torch.inference_mode():
             embs = self.embed_fn(self.gen_params, self.frm_params,
                                  self.perturb_latents(z, p))
-            return D.argmin_dist_refined(embs, self.gallery, self.frs_method)
+            with span("gallery_head"):
+                return D.argmin_dist_refined(embs, self.gallery,
+                                             self.frs_method)
 
     def predict_fn(self) -> Callable:
         """The (z, p) -> predictions closure of predict_fn_with_params."""
@@ -152,6 +160,8 @@ class FacePipeline:
             with torch.inference_mode():
                 w = z[None, :] + G.matmul_f32(p, params["dirs"])
                 embs = embed_fn(params["gen"], params["frm"], w)
-                return D.argmin_dist_refined(embs, params["gallery"], method)
+                with span("gallery_head"):
+                    return D.argmin_dist_refined(embs, params["gallery"],
+                                                 method)
 
         return fn, params

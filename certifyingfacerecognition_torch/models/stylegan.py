@@ -32,6 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from . import nn
 from ..constants import STYLEGAN_TRUNCATION_LAYERS, STYLEGAN_TRUNCATION_PSI
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.weights import to_torch
 
 # Resolution -> per-block channel counts.
@@ -155,7 +156,9 @@ def synthesis_apply(params: Dict, wp: torch.Tensor, *, resolution: int,
                     dtype=torch.float32, cb_out: bool = False
                     ) -> torch.Tensor:
     """W+ [B, L, 512] -> image [B, 3, H, W] in [-1, 1] (the trained
-    model's range), or [3, H, W, B] with cb_out=True (chain tail only)."""
+    model's range), or [3, H, W, B] with cb_out=True (chain tail only).
+    Spans ``synthesis.prefix`` (up to the chain boundary) and
+    ``synthesis.tail`` (the chain tail, or the plain final ToRGB)."""
     channels = RESOLUTIONS_TO_CHANNELS[resolution]
     syn = params["synthesis"]
     wp = wp.to(dtype)
@@ -164,18 +167,20 @@ def synthesis_apply(params: Dict, wp: torch.Tensor, *, resolution: int,
     if cb_out and bc_first > n_blocks:
         raise ValueError("cb_out needs the chain tail (see cb_out_active)")
 
-    x = synthesis_prefix(params, wp, resolution=resolution, dtype=dtype,
-                         stop=bc_first)
+    with span("synthesis.prefix"):
+        x = synthesis_prefix(params, wp, resolution=resolution, dtype=dtype,
+                             stop=bc_first)
 
-    if bc_first <= n_blocks:
-        return _synthesis_tail_bc(syn, x, wp, bc_first=bc_first,
-                                  n_blocks=n_blocks, channels=channels,
-                                  dtype=dtype, cb_out=cb_out)
+    with span("synthesis.tail"):
+        if bc_first <= n_blocks:
+            return _synthesis_tail_bc(syn, x, wp, bc_first=bc_first,
+                                      n_blocks=n_blocks, channels=channels,
+                                      dtype=dtype, cb_out=cb_out)
 
-    po = syn[f"output{len(channels) - 2}"]
-    scale = 1.0 / math.sqrt(x.shape[1])
-    img = nn.conv2d(x, po["conv_weight"].to(dtype), padding=0) * scale
-    return img + po["bias"].to(dtype)[None, :, None, None]
+        po = syn[f"output{len(channels) - 2}"]
+        scale = 1.0 / math.sqrt(x.shape[1])
+        img = nn.conv2d(x, po["conv_weight"].to(dtype), padding=0) * scale
+        return img + po["bias"].to(dtype)[None, :, None, None]
 
 
 def synthesis_prefix(params: Dict, wp: torch.Tensor, *, resolution: int,

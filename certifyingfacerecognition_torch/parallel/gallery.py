@@ -19,6 +19,7 @@ import torch.distributed as dist
 
 from ..ops import distances as D
 from ..ops import geometry as G
+from ..utils.profiling import span
 
 
 def shard_rows(n: int, n_id: int, id_: int) -> Tuple[int, int]:
@@ -68,7 +69,8 @@ def make_sharded_gallery_predict_fn(embed_fn: Callable, id_group,
         with torch.inference_mode():
             w = z[None, :] + G.matmul_f32(p, params["dirs"])
             embs = embed_fn(params["gen"], params["frm"], w).float()
-            return sharded_nearest(embs, params["gallery"], offset,
-                                   id_group, method)
+            with span("gallery_head"):
+                return sharded_nearest(embs, params["gallery"], offset,
+                                       id_group, method)
 
     return fn

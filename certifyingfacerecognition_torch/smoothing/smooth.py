@@ -17,6 +17,11 @@ and the adaptive estimators take optional precomputed noise arrays
 [n_batches, batch_size, noise_dim] (already scaled by sigma), used in
 place of the generator's draws, so that a test can feed the JAX package's
 noise (the two frameworks draw different random streams).
+
+Spans (utils/profiling.span): ``certify.batch`` over each MC batch, and
+inside it ``certify.noise`` (the draw and x + noise) and
+``certify.counts`` (the count and the mesh's all-reduce);
+``certify.read`` over each host read of the counts.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch.distributed as dist
 
 from .certificate import L2Certificate
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.stats import binom_two_sided_pvalue, clopper_pearson_lower
 
 ABSTAIN = -1
@@ -82,20 +88,25 @@ def _make_batch_fn(predict_fn: Callable, num_classes: int,
     positions = torch.arange(lo, lo + n_local, device=device)
 
     def batch_counts(params, z, x, sigma, generator, n_valid, noise=None):
-        if noise is None:
-            noise = certificate.sample_noise(
-                generator, (batch_size, noise_dim), sigma)
-        else:
-            noise = torch.as_tensor(noise, dtype=torch.float32,
-                                    device=device)
-        p = x[None, :] + noise[lo:lo + n_local]
-        preds = predict_fn(params, z, p) if with_params else predict_fn(z, p)
-        weights = (positions < n_valid).float()
-        counts = torch.zeros((num_classes,), dtype=torch.float32,
-                             device=device).index_add_(0, preds, weights)
-        if mesh is not None:
-            dist.all_reduce(counts, group=mesh.mc_group)
-        return counts
+        with span("certify.batch", outer=True):
+            with span("certify.noise"):
+                if noise is None:
+                    noise = certificate.sample_noise(
+                        generator, (batch_size, noise_dim), sigma)
+                else:
+                    noise = torch.as_tensor(noise, dtype=torch.float32,
+                                            device=device)
+                p = x[None, :] + noise[lo:lo + n_local]
+            preds = predict_fn(params, z, p) if with_params \
+                else predict_fn(z, p)
+            with span("certify.counts"):
+                weights = (positions < n_valid).float()
+                counts = torch.zeros((num_classes,), dtype=torch.float32,
+                                     device=device).index_add_(0, preds,
+                                                               weights)
+                if mesh is not None:
+                    dist.all_reduce(counts, group=mesh.mc_group)
+            return counts
 
     return batch_counts
 
@@ -161,8 +172,10 @@ class Smooth:
         """Per-class counts from ``num`` noisy forwards. ``noise``: optional
         [ceil(num / batch_size), batch_size, noise_dim] injected noise."""
         z, x = self._inputs(z, x)
-        return self._counts(z, x, batch_valid(num, self.batch_size),
-                            generator, noise).cpu().numpy()
+        counts = self._counts(z, x, batch_valid(num, self.batch_size),
+                              generator, noise)
+        with span("certify.read"):
+            return counts.cpu().numpy()
 
     def certify(self, z, x, label: int, n0: int, n: int, alpha: float,
                 generator: torch.Generator, noise0=None, noise=None):
@@ -240,7 +253,8 @@ class Smooth:
         z, x = self._inputs(z, x)
         bs = self.batch_size
         counts0 = self._counts(z, x, batch_valid(n0, bs), generator, noise0)
-        c_a_hat = int(counts0.argmax())
+        with span("certify.read"):
+            c_a_hat = int(counts0.argmax())
         if c_a_hat != int(label):
             return c_a_hat, 0.0, n0
 
@@ -253,7 +267,8 @@ class Smooth:
             sl = slice(c * chunk_batches, (c + 1) * chunk_batches)
             counts = self._counts(z, x, valid[sl], generator,
                                   None if noise is None else noise[sl])
-            n_a += int(counts[c_a_hat])                # one read
+            with span("certify.read"):
+                n_a += int(counts[c_a_hat])            # one read
             m += int(valid[sl].sum())
             last = c == n_chunks - 1
 

@@ -1,12 +1,19 @@
-"""Tracing and phase timing (port of certifyingfacerecognition_tpu/utils/
-profiling.py):
+"""Tracing and timing (port of certifyingfacerecognition_tpu/utils/
+profiling.py), the port's one tracing module:
 
   * ``trace(logdir)``: a context manager around torch.profiler that writes
     a Chrome/Perfetto trace (CPU activities, and CUDA kernels on a card)
-    under ``logdir``;
-  * ``annotate(name)``: a named region (record_function) in that trace;
-  * ``PhaseTimer``: accumulating named wall-clock phases with a report,
-    each phase synchronised on a result of its own block;
+    under ``logdir``, and beside it each span's calls, host and self ms;
+  * ``span(name)``: a named layer of the program. With no torch.profiler
+    session recording it is one flag check and returns a shared no-op
+    context; while a session records, it keeps the span in memory (name,
+    parent, host start and end on the trace's clock, and on a card a CUDA
+    event at each end, never waited on), and, unless it is an ``outer``
+    span, also opens a profiler range, so that the trace names each
+    stretch of host time after the layer it was in;
+  * ``snapshot()`` / ``reset()``: what the spans recorded, per name
+    (calls, host and self ms, and each call's host and device interval
+    on the trace's clock), and clearing it;
   * ``measure(fn, *args)``: best-of-N time of a call, with CUDA events on
     a card and the host clock on the CPU;
   * ``device_sync(x)``: wait for the device work that produces ``x``.
@@ -15,12 +22,14 @@ profiling.py):
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 def _leaves(x) -> List[torch.Tensor]:
@@ -95,73 +104,189 @@ def measure(fn, *args, reps: int = 5, subtract_sync: bool = True) -> float:
 def trace(logdir: str):
     """Profile the block with torch.profiler (CPU activities, plus CUDA
     ones when a card is present) and write its Chrome/Perfetto trace to
-    ``logdir/<pid>.<time>.pt.trace.json``. Yields the profiler, whose
-    ``key_averages()`` and ``events()`` stay readable after the block."""
+    ``logdir/<pid>.<time>.pt.trace.json``, and beside it, as
+    ``<pid>.<time>.spans.json``, the calls, host ms and self ms of each
+    span the block ran. Yields the profiler, whose ``key_averages()`` and
+    ``events()`` stay readable after the block."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    reset()
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(
-        logdir, f"{os.getpid()}.{time.time_ns()}.pt.trace.json"))
+    stem = os.path.join(logdir, f"{os.getpid()}.{time.time_ns()}")
+    prof.export_chrome_trace(stem + ".pt.trace.json")
+    with open(stem + ".spans.json", "w") as f:
+        json.dump({name: {k: s[k] for k in ("calls", "host_ms", "self_ms")}
+                   for name, s in snapshot().items()}, f, indent=1)
+    reset()
 
 
-def annotate(name: str):
-    """Named region inside a trace."""
-    return torch.profiler.record_function(name)
+class _NoSpan:
+    """The one context every span returns while no session records."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
 
 
-class _PhaseHandle:
-    """Collects the value to synchronise on from INSIDE the timed block:
-    a ``sync=`` keyword would be evaluated before the block runs and could
-    only ever point at a previous iteration's result."""
+_NO_SPAN = _NoSpan()
+
+
+class _Call:
+    """One recorded span: host times in ns on the trace's clock
+    (``time.time_ns``), each taken before the CUDA event at that end is
+    recorded (on a card)."""
+
+    __slots__ = ("name", "parent", "t0", "t1", "ev0", "ev1")
+
+
+class _Recorder:
+    """The spans recorded since the last ``reset``."""
 
     def __init__(self):
-        self.value = None
-
-    def sync(self, x):
-        self.value = x
-        return x
+        self.calls: List[_Call] = []
+        self.local = threading.local()     # .stack, .in_range per thread
+        self.exclusive = 0                 # exclusive spans open
 
 
-class PhaseTimer:
-    """Accumulating wall-clock phase timers.
+_REC = _Recorder()
 
-    Usage::
 
-        timer = PhaseTimer()
-        with timer.phase("synthesis") as ph:
-            img = ph.sync(synth(w))     # wait for THIS block's result
-        logger.info(timer.report())
-    """
+def _cuda_event() -> Optional[torch.cuda.Event]:
+    """A timing event recorded on the current stream, or None off the
+    card and while the stream is captured into a CUDA graph."""
+    if not torch.cuda.is_initialized() or \
+            torch.cuda.is_current_stream_capturing():
+        return None
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
 
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        handle = _PhaseHandle()
-        t0 = time.perf_counter()
-        try:
-            yield handle
-        finally:
-            device_sync(handle.value)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+class _Span:
+    """A span while a profiler session records."""
 
-    def report(self) -> str:
-        total = sum(self.totals.values()) or 1.0
-        lines = ["phase timings:"]
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            t, c = self.totals[name], self.counts[name]
-            lines.append(f"  {name:24s} {t:8.3f}s ({c}x, "
-                         f"{t / c * 1e3:7.1f} ms/call, {100 * t / total:4.1f}%)")
-        return "\n".join(lines)
+    __slots__ = ("name", "outer", "exclusive", "call", "range")
 
-    def reset(self) -> None:
-        self.totals.clear()
-        self.counts.clear()
+    def __init__(self, name: str, outer: bool, exclusive: bool):
+        self.name, self.outer, self.exclusive = name, outer, exclusive
+        self.call = self.range = None
+
+    def __enter__(self):
+        rec = _REC
+        if rec.exclusive:
+            # opened inside an exclusive span, on any thread (the
+            # checkpoint's recompute runs on the autograd engine's thread
+            # on a card): it counts toward that span
+            return None
+        if self.exclusive:
+            rec.exclusive += 1
+        local = rec.local
+        if not hasattr(local, "stack"):
+            local.stack, local.in_range = [], False
+        call = _Call()
+        call.name = self.name
+        call.parent = local.stack[-1] if local.stack else None
+        call.t1 = call.ev1 = None
+        call.t0 = time.time_ns()
+        if not self.outer and not local.in_range:
+            self.range = torch.autograd.profiler.record_function(self.name)
+            self.range.__enter__()
+            local.in_range = True
+        call.ev0 = _cuda_event()
+        local.stack.append(call)
+        rec.calls.append(call)
+        self.call = call
+        return None
+
+    def __exit__(self, *exc):
+        call = self.call
+        if call is None:
+            return False
+        if self.range is not None:
+            self.range.__exit__(*exc)
+            _REC.local.in_range = False
+        call.t1 = time.time_ns()
+        if call.ev0 is not None:
+            call.ev1 = _cuda_event()
+        _REC.local.stack.pop()
+        if self.exclusive:
+            _REC.exclusive -= 1
+        return False
+
+
+def span(name: str, *, outer: bool = False, exclusive: bool = False):
+    """The context of the program's layer ``name``. With no torch.profiler
+    session recording: one flag check and a shared no-op. While one
+    records, the span is kept for ``snapshot`` and opens a profiler range
+    of its name, unless it is ``outer`` (it holds other spans; the
+    breakdown names an idle gap after the host event overlapping it
+    most, which would otherwise be the outer span's), or a range is
+    already open on its thread. While an ``exclusive`` span is open no
+    other span records, on any thread: what runs inside counts toward it."""
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, outer, exclusive)
+
+
+def reset() -> None:
+    """Clear what the spans recorded."""
+    _REC.calls = []
+
+
+def device_offset(pairs: List[Tuple[int, int]]) -> int:
+    """The ns to add to device times (CUDA events' times from a reference
+    event) to put them on the host's clock, from (host ns taken before an
+    event was recorded, the event's device ns) pairs: an event completes
+    no earlier than the host records it, and one recorded while the
+    stream is idle completes a few us later, so the largest difference
+    is the offset, to within that latency."""
+    return max(h - d for h, d in pairs)
+
+
+def snapshot() -> Dict:
+    """What the spans recorded, by name: ``calls``; ``host_ms`` and
+    ``self_ms`` (less the time its child spans cover), summed over the
+    calls; ``host_ns``, each call's (start, end) on the trace's clock
+    (the Chrome trace's ``ts`` in us plus its ``baseTimeNanoseconds``);
+    on a card ``device_ns``, each call's (start, end) on the device: when
+    the stream reached the span's CUDA events, on the same clock through
+    ``device_offset`` (the card is waited on here). The kernels that run
+    between a call's ends are those it launched."""
+    calls = [c for c in _REC.calls if c.t1 is not None]
+    timed = [c for c in calls if c.ev1 is not None]
+    dev = {}
+    if timed:
+        torch.cuda.synchronize()
+        ref = timed[0].ev0
+        for c in timed:
+            dev[id(c)] = (round(ref.elapsed_time(c.ev0) * 1e6),
+                          round(ref.elapsed_time(c.ev1) * 1e6))
+        off = device_offset([p for c in timed for p in
+                             zip((c.t0, c.t1), dev[id(c)])])
+        dev = {k: (d0 + off, d1 + off) for k, (d0, d1) in dev.items()}
+    child = {}
+    for c in calls:
+        if c.parent is not None:
+            p = id(c.parent)
+            child[p] = child.get(p, 0) + c.t1 - c.t0
+    spans: Dict[str, Dict] = {}
+    for c in calls:
+        s = spans.setdefault(c.name, {"calls": 0, "host_ms": 0.0,
+                                      "self_ms": 0.0, "host_ns": [],
+                                      "device_ns": []})
+        s["calls"] += 1
+        s["host_ms"] += (c.t1 - c.t0) / 1e6
+        s["self_ms"] += (c.t1 - c.t0 - child.get(id(c), 0)) / 1e6
+        s["host_ns"].append((c.t0, c.t1))
+        if id(c) in dev:
+            s["device_ns"].append(dev[id(c)])
+    return spans

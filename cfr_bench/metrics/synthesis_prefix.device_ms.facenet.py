@@ -1,0 +1,7 @@
+"""``synthesis_prefix.device_ms`` in the FaceNet configuration's certify
+cells: it moves that configuration's ``certify_samples_per_s.facenet``."""
+
+from cfr_bench import harness
+
+read = harness.load_module(
+    harness.HERE / "metrics" / "synthesis_prefix.device_ms.py").read

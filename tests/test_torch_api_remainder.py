@@ -415,6 +415,7 @@ NOT_PORTED = {
     "smoothing/smooth.py": {"make_counts_fn", "Smooth.__init__(param_specs)"},
     "tools/tail_kernel_bench.py": {"HBM_GBPS"},
     "tools/weak_scaling.py": {"collective_inventory"},
+    "utils/profiling.py": {"annotate", "PhaseTimer"},
 }
 JAX_MODULES = sorted(osp.relpath(f, JAX_PKG) for f in glob.glob(
     osp.join(JAX_PKG, "**", "*.py"), recursive=True))
