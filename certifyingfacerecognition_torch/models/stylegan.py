@@ -9,7 +9,9 @@ latents.
 
 bf16 runs the synthesis blocks from CFR_TAIL_MIN_RES (default 512, floor
 128) upward as the chain tail of ops/synthesis_tail_bc.py when CFR_TAIL=bc
-(hand-written CUDA kernels on the GPU); the f32 path always runs plain ops.
+(hand-written CUDA kernels on the GPU); up to 256^2, each layer's bf16
+epilogue on the GPU with no autograd graph to record runs the kernels of
+ops/prefix_epilogue.py. The f32 path always runs plain ops.
 
 With grad enabled (the attack path), every synthesis block on plain ops is
 rematerialised in the backward pass (one checkpoint per block), and a
@@ -31,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from . import nn
 from ..constants import STYLEGAN_TRUNCATION_LAYERS, STYLEGAN_TRUNCATION_PSI
+from ..ops import prefix_epilogue
 from ..utils.device import resolve_device
 from ..utils.profiling import span
 from ..utils.weights import to_torch
@@ -105,9 +108,14 @@ def truncation_apply(params: Dict, w: torch.Tensor, *, resolution: int,
 
 def _style(p: Dict, w_layer: torch.Tensor, c: int, *, dtype):
     """AdaIN style affine (s0, s1), each [B, C]."""
-    style = w_layer @ p["style_weight"].to(dtype)
-    style = style * _wscale(W_DIM, gain=1.0) + p["style_bias"].to(dtype)
+    style = _style_dense(p, w_layer, dtype=dtype)
     return style[:, :c], style[:, c:]
+
+
+def _style_dense(p: Dict, w_layer: torch.Tensor, *, dtype) -> torch.Tensor:
+    """The style's dense layer: [B, 2C], s0 then s1."""
+    style = w_layer @ p["style_weight"].to(dtype)
+    return style * _wscale(W_DIM, gain=1.0) + p["style_bias"].to(dtype)
 
 
 def _chw(v: torch.Tensor) -> torch.Tensor:
@@ -117,7 +125,36 @@ def _chw(v: torch.Tensor) -> torch.Tensor:
 
 def _epilogue(p: Dict, x: torch.Tensor, w_layer: torch.Tensor, *,
               dtype) -> torch.Tensor:
-    """noise -> bias -> lrelu -> instance-norm -> AdaIN style modulation."""
+    """noise -> bias -> lrelu -> instance-norm -> AdaIN style modulation:
+    the kernels of ops/prefix_epilogue.py where _takes_kernel says so, else
+    the plain ops (_epilogue_plain)."""
+    if x.is_cuda:
+        if _takes_kernel(p, x, w_layer):
+            return prefix_epilogue.prefix_epilogue(
+                x.contiguous(memory_format=torch.channels_last),
+                prefix_epilogue.nb_of(p).to(dtype),
+                _style_dense(p, w_layer, dtype=dtype))
+        prefix_epilogue.LAUNCHES["prefix_epilogue_plain"] += 1
+    return _epilogue_plain(p, x, w_layer, dtype=dtype)
+
+
+def _takes_kernel(p: Dict, x: torch.Tensor, w_layer: torch.Tensor) -> bool:
+    """A bf16 activation (on the card) of a shape the kernels take
+    (prefix_epilogue.supports) and no autograd graph to record; the CPU,
+    f32, the attacks' gradients and the larger planes of a synthesis
+    without the chain tail take the plain ops."""
+    if x.dtype != torch.bfloat16 or \
+            not prefix_epilogue.supports(*x.shape[1:]):
+        return False
+    return not torch.is_grad_enabled() or not any(
+        t.requires_grad for t in (x, w_layer, p["noise"], p["noise_weight"],
+                                  p["bias"], p["style_weight"],
+                                  p["style_bias"]))
+
+
+def _epilogue_plain(p: Dict, x: torch.Tensor, w_layer: torch.Tensor, *,
+                    dtype) -> torch.Tensor:
+    """_epilogue on plain ops, each rounding to ``dtype``."""
     noise = _chw(p["noise"].to(dtype))
     x = x + noise * p["noise_weight"].to(dtype)[None, :, None, None]
     x = x + p["bias"].to(dtype)[None, :, None, None]
@@ -211,9 +248,6 @@ def _synthesis_tail_bc(syn: Dict, x: torch.Tensor, wp: torch.Tensor, *,
     the [3, H, W, B] image."""
     from ..ops import synthesis_tail_bc as bc
 
-    def nb_of(p):
-        return (p["noise"] * p["noise_weight"] + p["bias"]).float()
-
     def styles(p, w_layer, c):
         s0, s1 = _style(p, w_layer, c, dtype=dtype)
         return s0.float() + 1.0, s1.float()
@@ -227,9 +261,11 @@ def _synthesis_tail_bc(syn: Dict, x: torch.Tensor, wp: torch.Tensor, *,
         s0p1_c, s1_c = styles(p_c, wp[:, 2 * bi - 1], co)
         blk = {
             "k4": p_up["tconv_kernel"],
-            "up_nb": nb_of(p_up), "up_s0p1": s0p1_u, "up_s1": s1_u,
+            "up_nb": prefix_epilogue.nb_of(p_up), "up_s0p1": s0p1_u,
+            "up_s1": s1_u,
             "k": (p_c["conv_weight"] * _wscale(co * 9)).float(),
-            "conv_nb": nb_of(p_c), "conv_s0p1": s0p1_c, "conv_s1": s1_c,
+            "conv_nb": prefix_epilogue.nb_of(p_c), "conv_s0p1": s0p1_c,
+            "conv_s1": s1_c,
         }
         if bi == n_blocks:
             po = syn[f"output{len(channels) - 2}"]

@@ -21,7 +21,8 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = {"synthesis_tail_bc": CSRC / "synthesis_tail_bc.cu"}
+SOURCES = {"synthesis_tail_bc": CSRC / "synthesis_tail_bc.cu",
+           "prefix_epilogue": CSRC / "prefix_epilogue.cu"}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,9 @@ _SIGNATURES = {
         "cfr_up_stats": [_I, _P, _P, _P, _P] + [_I] * 5 + [_P],
         "cfr_up_apply": [_I, _P, _P, _P, _P, _P] + [_I] * 5 + [_P],
         "cfr_up_occupancy": [_I, _I, _I, _P, _P],
+    },
+    "prefix_epilogue": {
+        "cfr_prefix_epilogue": [_P] * 6 + [_I] * 3 + [_P],
     },
 }
 

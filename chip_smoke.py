@@ -12,7 +12,9 @@ Runs straight through and raises (exit code != 0) on any failure:
    bf16 up one must hold wgmma (HGMMA), TMA (UTMALDG) and cp.async
    (LDGSTS), every bf16 conv one mma.sync (HMMA), neither a spill, every
    f32 one no tensor-core instruction; prints the bf16 up kernel's shared
-   memory and blocks per SM;
+   memory and blocks per SM; builds the synthesis prefix's epilogue
+   kernels (csrc/prefix_epilogue.cu) and prints their registers (a spill
+   fails);
 3. each kernel of the synthesis tail against its plain PyTorch version at
    the 1024^2 tail's shapes (B = 8), bf16 and f32: the four chain kernels
    with and without the input affine (final_stats and final_apply also at
@@ -25,10 +27,16 @@ Runs straight through and raises (exit code != 0) on any failure:
    and a ragged strip), and the whole kernel chain against a plain chain;
 4. each kernel's time at B = 128 (CUDA events, median of 5) beside its
    plain version's time, its roofline bound and the time of cuDNN's
-   convolution of the same layer (the library yardstick);
+   convolution of the same layer (the library yardstick); the prefix
+   epilogue kernels at B = 100 at each of the 14 epilogues of a 1024^2
+   synthesis up to 256^2, against their plain version, beside their bytes
+   bound and the plain bf16 ops they replace (20 calls back to back);
 5. the certify path: ``cfr-certify`` (cli.certify.main) at 1024^2 in bf16
    with CFR_TAIL=bc on four identities, launch counters zeroed just before
-   and read just after (every chain kernel must have launched), then the
+   and read just after (every chain kernel must have launched, and the
+   prefix epilogue kernels called 14 times a synthesis: no epilogue on
+   plain ops),
+   then the
    same run on the plain bf16 path; images and embeddings are checked
    against f32;
 5b. adaptive certification and the reduced-resolution cascade on phase
@@ -650,6 +658,112 @@ def time_kernels(bc, gen, gpu, b=128):
         r["bound_by"] = "bytes" if r.pop("t_bytes") >= r.pop("t_ops") \
             else "operations"
     return rec
+
+
+PREFIX_SOURCE = "certifyingfacerecognition_torch/csrc/prefix_epilogue.cu"
+# (H, C) of the 14 epilogues of a 1024^2 synthesis up to 256^2: layer0 and
+# the 4^2 block's conv half, then an up and a conv half a block
+PREFIX_EPILOGUES = [(4, 512)] * 2 + [(h, c) for h, c in (
+    (8, 512), (16, 512), (32, 512), (64, 256), (128, 128), (256, 64))
+    for _ in range(2)]
+
+
+def check_prefix_build(kernels):
+    """Phase 2: build the prefix epilogue's library (again, if cached, for
+    ptxas's log); print its three kernels' registers; none may spill."""
+    t0 = time.time()
+    kernels.build("prefix_epilogue", force=True)
+    info = kernels.BUILD_LOG["prefix_epilogue"]
+    log(f"build prefix_epilogue: {time.time() - t0:.1f} s")
+    found, fn = {}, None
+    for line in info["log"].splitlines():
+        m = re.search(r"Function properties for \S*(prefix_\w+_kernel)", line)
+        if m:
+            fn = m[1]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            found[fn] = [int(m[1]), int(m[2]), None]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in found:
+            found[fn][2] = int(m[1])
+            fn = None
+    for fn, (st, ld, regs) in sorted(found.items()):
+        log(f"  {fn}: {regs} registers, spill stores {st} B, loads {ld} B")
+    if set(found) != {"prefix_moments_kernel", "prefix_coef_kernel",
+                      "prefix_apply_kernel"} or \
+            any(st or ld for st, ld, _ in found.values()):
+        raise AssertionError(f"prefix epilogue kernels missing or spilling: "
+                             f"{found}")
+
+
+def prefix_bound_ms(h, c, b):
+    """Least time of one epilogue on the card: x read and out written once
+    and nb read once, in bf16, at PEAK_BYTES."""
+    return (4 * b * c * h * h + 2 * c * h * h) / PEAK_BYTES * 1e3
+
+
+def calls_ms(fn, calls=20):
+    """ms a call of `calls` back-to-back calls (CUDA events around them, the
+    median of 5), after one warm-up: a call's launches keep the card busy
+    while the host issues the next one's."""
+    return cuda_ms(lambda: [fn() for _ in range(calls)]) / calls
+
+
+def time_prefix_epilogue(gen, gpu, b=100):
+    """Phase 4: the prefix epilogue kernels at the certify batch, at each
+    of the 14 epilogues of a 1024^2 synthesis up to 256^2: their output
+    within one bf16 rounding of their plain version, their time (all three
+    launches, calls_ms) beside their bound, and the path around them (nb
+    folded, the style's dense layer) and the plain bf16 ops they replace
+    (_epilogue_plain), each alone with no graph recorded."""
+    from certifyingfacerecognition_torch.models import stylegan
+    from certifyingfacerecognition_torch.ops import prefix_epilogue as pe
+
+    bf = torch.bfloat16
+    by_shape = {}
+    for h, c in sorted(set(PREFIX_EPILOGUES)):
+        p = {"noise": randn((h, h, c), gen),
+             "noise_weight": randn((c,), gen, 0.3),
+             "bias": randn((c,), gen, 0.3),
+             "style_weight": randn((512, 2 * c), gen),
+             "style_bias": randn((2 * c,), gen, 0.3)}
+        x = randn((b, c, h, h), gen, dtype=bf).contiguous(
+            memory_format=torch.channels_last)
+        w = randn((b, 512), gen, dtype=bf)
+        with torch.no_grad():
+            args = (pe.nb_of(p).to(bf), stylegan._style_dense(p, w, dtype=bf))
+            got = pe.prefix_epilogue(x, *args).float()
+            ref = pe.prefix_epilogue_ref(x, *args).float()
+            if not ((got - ref).abs() <= ref.abs() * 2.0 ** -7
+                    + 1e-4 * ref.abs().max()).all():
+                raise AssertionError(f"prefix_epilogue {h}^2 x {c}: more "
+                                     f"than a bf16 rounding from its plain "
+                                     f"version")
+            rec = {"ms": calls_ms(lambda: pe.prefix_epilogue(x, *args)),
+                   "path_ms": calls_ms(lambda: stylegan._epilogue(
+                       p, x, w, dtype=bf)),
+                   "plain_ms": calls_ms(lambda: stylegan._epilogue_plain(
+                       p, x, w, dtype=bf)),
+                   "bound_ms": prefix_bound_ms(h, c, b)}
+        log(f"time prefix_epilogue {h}^2 x {c} bf16 B={b}: kernel "
+            f"{rec['ms']:.4f} ms ({100 * rec['bound_ms'] / rec['ms']:.1f} % "
+            f"of its {rec['bound_ms']:.4f} ms bytes bound), with nb and "
+            f"styles {rec['path_ms']:.4f} ms, plain bf16 ops "
+            f"{rec['plain_ms']:.4f} ms [{gpu}]")
+        by_shape[(h, c)] = rec
+        del x, got, ref
+        torch.cuda.empty_cache()
+    total = {k: sum(by_shape[s][k] for s in PREFIX_EPILOGUES)
+             for k in ("ms", "path_ms", "plain_ms", "bound_ms")}
+    two = {k: 2 * by_shape[(256, 64)][k] for k in total}
+    for tag, t in (("the two 256^2", two), ("all 14", total)):
+        log(f"time prefix_epilogue, {tag} epilogues, B={b}: kernel "
+            f"{t['ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({100 * t['bound_ms'] / t['ms']:.1f} %), with nb and styles "
+            f"{t['path_ms']:.3f} ms, plain bf16 ops {t['plain_ms']:.3f} ms "
+            f"[{gpu}]")
+    return {"by_shape": by_shape, "two_256": two, "all_14": total}
 
 
 def make_data_dir(root, pipe_kwargs):
@@ -2076,9 +2190,9 @@ def api_pipeline(bc, gen_params, frm_path, w, embs):
     """(b) FacePipeline at 1024^2 bf16 through the chain kernels on phase
     5's gallery, z = phase 5's first latent, p = 0.1 N(0, 1) over the five
     directions: predict equals predict_fn() and predict_fn_with_params's
-    fn bit for bit; logits (grad enabled) equal -make_dists_fn at
-    perturb_latents to the bf16 rule; each row of probs sums to 1 within
-    1e-5."""
+    fn bit for bit; logits and -make_dists_fn at perturb_latents, both
+    recording a graph, agree to the bf16 rule; each row of probs sums to 1
+    within 1e-5."""
     from certifyingfacerecognition_torch.eval.chunk_runner import \
         make_dists_fn
     from certifyingfacerecognition_torch.models.pipeline import FacePipeline
@@ -2100,10 +2214,12 @@ def api_pipeline(bc, gen_params, frm_path, w, embs):
     pg = p.clone().requires_grad_()
     logits = pipe.logits(z, pg)
     assert logits.requires_grad and logits.shape == (API_Z, len(embs))
+    # with a graph to record too, so that both take the plain epilogue up
+    # to 256^2 (with none, the prefix epilogue kernels round elsewhere)
+    want = -make_dists_fn("insightface", 1024, torch.bfloat16)(
+        {"gen": pipe.gen_params, "frm": pipe.frm_params,
+         "gallery": pipe.gallery}, pipe.perturb_latents(z, pg)).detach()
     with torch.no_grad():
-        want = -make_dists_fn("insightface", 1024, torch.bfloat16)(
-            {"gen": pipe.gen_params, "frm": pipe.frm_params,
-             "gallery": pipe.gallery}, pipe.perturb_latents(z, p))
         probs = pipe.probs(z, p)
     torch.cuda.synchronize()
     launches = require_chain(bc, "FacePipeline")
@@ -2427,6 +2543,7 @@ def main() -> int:
         make_predict_fn
     from certifyingfacerecognition_torch.ops import geometry as G
     from certifyingfacerecognition_torch.ops import kernels
+    from certifyingfacerecognition_torch.ops import prefix_epilogue as pe
     from certifyingfacerecognition_torch.ops import synthesis_tail_bc as bc
     from certifyingfacerecognition_torch.utils import weights as W
 
@@ -2440,11 +2557,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     check_build(kernels)
+    check_prefix_build(kernels)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     worst = check_kernels(bc, gen)
     check_chain(bc, gen)
     timing = time_kernels(bc, gen, gpu)
+    prefix_timing = time_prefix_epilogue(gen, gpu)
 
     cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as root:
@@ -2454,15 +2573,23 @@ def main() -> int:
         torch.cuda.empty_cache()
 
         bc.reset_launches()
+        pe.reset_launches()
         rows, samples, secs, _ = certify_run(
             certify.main, root, frm_path, os.path.join(root, "bc.tsv"), "bc")
         launches = dict(bc.LAUNCHES)
+        prefix_launches = dict(pe.LAUNCHES)
         log(f"certify path (CFR_TAIL=bc): {rows}")
-        log(f"certify path launches: {launches}")
+        log(f"certify path launches: {launches}, {prefix_launches}")
         missing = [k for k in CHAIN if launches[k] == 0]
         if missing:
             raise AssertionError(f"kernels never launched on the certify "
                                  f"path: {missing}")
+        # a synthesis: 14 epilogues up to 256^2, one final_apply launch
+        if prefix_launches != {"prefix_epilogue": 14 * launches["final_apply"],
+                               "prefix_epilogue_plain": 0}:
+            raise AssertionError(f"certify path: prefix epilogues "
+                                 f"{prefix_launches}, 14 kernel launches a "
+                                 f"synthesis expected")
         log(f"certify path bf16 chain tail: {samples} samples in "
             f"{secs:.3f} s = {samples / secs:.1f} samples/s [{gpu}]")
 
@@ -2611,6 +2738,13 @@ def main() -> int:
             "max_abs_err": worst[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = prefix_timing["all_14"]
+    records.append({
+        "name": "prefix_epilogue", "route": "cuda", "source": PREFIX_SOURCE,
+        "replaces": None, "launches": prefix_launches["prefix_epilogue"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": "bytes", "path_ms": t["path_ms"],
+        "ms_two_256": prefix_timing["two_256"]["ms"]})
     log(f"total: {time.time() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": records}))
