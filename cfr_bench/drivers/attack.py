@@ -45,20 +45,14 @@ def _attack_fn(tr, short: bool = False):
 
 
 def setup(ctx) -> SimpleNamespace:
-    from certifyingfacerecognition_torch.eval.chunk_runner import \
-        make_dists_fn
-    from certifyingfacerecognition_torch.models.pipeline import FacePipeline
-
     tr, dev, seed = ctx.traffic, ctx.device, ctx.seed
     p = program.build(ctx)
     st = SimpleNamespace(ctx=ctx, tr=tr, p=p, units=[], calls=[],
                          attempted=0)
-    st.z = inputs.latents(tr["gallery"], seed, dev)
-    rows = FacePipeline(p.gen_params, p.frm_params, dirs=p.region.dirs.t(),
-                        frs_method=p.frs, resolution=p.res, dtype=p.dtype,
-                        device=dev).lat2embs(st.z, chunk=tr["batch"])
+    st.z = p.gen.latents(tr["gallery"], seed, dev)
+    rows = p.gen.pipeline(p).lat2embs(st.z, chunk=tr["batch"])
     st.gallery = rows.float().clone()          # autograd saves it
-    dists_fn = make_dists_fn(p.frs, p.res, p.dtype, remat=True)
+    dists_fn = p.gen.dists_fn(p, remat=True)
     params = {"gen": p.gen_params, "frm": p.frm_params,
               "gallery": st.gallery}
 
@@ -119,7 +113,7 @@ def layer_record(st) -> dict:
     return {"kind": "attack", "attack": tr["attack"], "batch": tr["batch"],
             "steps_per_attack": steps,
             "flops_fwd_per_sample": flops.forward_flops(
-                st.p.frs, st.p.res, tr["gallery"])}
+                st.ctx.config, tr["gallery"])}
 
 
 def release(st) -> None:
@@ -152,7 +146,7 @@ def _xent_grad(st, lats, labels, deltas, g_ref, prec) -> torch.Tensor:
         d = deltas[s:s + REF_ROWS].float().clone().requires_grad_(True)
         with torch.enable_grad():
             w = lats[s:s + REF_ROWS].float() + d @ dirs
-            e = ref.embed(p.gen_sd, p.frm_sd, p.frs, w, p.res, prec,
+            e = ref.embed(p.gen, p.gen_sd, p.frm, p.frm_sd, w, p.res, prec,
                           rows=REF_ROWS)
             dist = ref.distances(p.frs, e, g_ref)
             xent = -torch.log_softmax(-dist / EMB, dim=1).gather(

@@ -27,7 +27,6 @@ from cfr_bench import flops, inputs, program
 from cfr_bench.reference import pipeline as ref
 from cfr_bench.reference.precision import F32, FP8, exact_f32
 
-TAIL_SPLIT_RES = 256          # synthesis_prefix ends with this block
 REF_ROWS = 8                  # reference rows at a time
 
 
@@ -68,7 +67,6 @@ class Stash:
 
 
 def setup(ctx) -> SimpleNamespace:
-    from certifyingfacerecognition_torch.models.pipeline import FacePipeline
     from certifyingfacerecognition_torch.smoothing.certificate import \
         L2Certificate
     from certifyingfacerecognition_torch.smoothing.smooth import Smooth
@@ -80,18 +78,13 @@ def setup(ctx) -> SimpleNamespace:
     p = program.build(ctx)
     st = SimpleNamespace(ctx=ctx, tr=tr, p=p, units=[], attempted=0,
                          stash=Stash(dev.type == "cuda"))
-    st.z = inputs.latents(tr["identities"], seed, dev)
+    st.z = p.gen.latents(tr["identities"], seed, dev)
     st.z_host = program.to_host(st.z)
-    dirs = p.region.dirs.t()
-    rows = FacePipeline(p.gen_params, p.frm_params, dirs=dirs,
-                        frs_method=p.frs, resolution=p.res, dtype=p.dtype,
-                        device=dev).lat2embs(st.z, chunk=b).float()
+    rows = p.gen.pipeline(p).lat2embs(st.z, chunk=b).float()
     xi = torch.randn((tr["gallery"] - tr["identities"], 512), device=dev,
                      generator=inputs.generator(seed, inputs.FILLER, dev))
     st.gallery = torch.cat([rows, program.filler_rows(rows, xi, p.frs)])
-    st.pipe = FacePipeline(p.gen_params, p.frm_params, dirs=dirs,
-                           frs_method=p.frs, resolution=p.res, dtype=p.dtype,
-                           gallery=st.gallery, device=dev)
+    st.pipe = p.gen.pipeline(p, gallery=st.gallery)
     st.pipe.embed_fn = st.stash.wrap_embed(st.pipe.embed_fn)
     fn, params = st.pipe.predict_fn_with_params()
     st.sigma = np.full((5,), tr["sigma"], np.float32)
@@ -135,29 +128,16 @@ def window_metrics(st, seconds: float) -> dict:
 
 def layer_record(st) -> dict:
     """Stage timing of one batch (the identities' latents) with CUDA
-    events, each stage the previous one plus a step of the pipeline: the
-    synthesis up to 256^2, the whole synthesis, the embedding."""
-    from certifyingfacerecognition_torch.models import stylegan
-    from certifyingfacerecognition_torch.models.pipeline import \
-        make_lat2embs
-
-    p, w = st.p, st.z[:st.tr["batch"]]
-    gen, frm = p.gen_params, p.frm_params
-    stop = int(math.log2(min(TAIL_SPLIT_RES, p.res)))
-    embed = make_lat2embs(p.frs, p.res, p.dtype)
-    stages = {
-        "pre": lambda: stylegan.synthesis_prefix(
-            gen, stylegan.truncation_apply(gen, w, resolution=p.res),
-            resolution=p.res, dtype=p.dtype, stop=stop),
-        "synth": lambda: stylegan.synthesize_from_w(
-            gen, w, resolution=p.res, dtype=p.dtype,
-            cb_out=stylegan.cb_out_active(p.res, p.dtype)),
-        "embed": lambda: embed(gen, frm, w),
-    }
+    events, each stage the previous one plus a step of the pipeline, as
+    the generator family splits it (``stages``: the synthesis up to
+    256^2, the whole synthesis, the embedding; none where it has no
+    split)."""
+    p = st.p
+    stages = p.gen.stages(p, st.z[:st.tr["batch"]]) or {}
     return {"kind": "certify",
             "stages_ms": {k: stage_ms(st.stash, f) for k, f in stages.items()},
             "batch": st.tr["batch"], "resolution": p.res,
-            "flops_per_sample": flops.forward_flops(p.frs, p.res,
+            "flops_per_sample": flops.forward_flops(st.ctx.config,
                                                     st.tr["gallery"])}
 
 

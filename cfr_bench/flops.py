@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from .reference import facenet, iresnet, pipeline, stylegan
+from . import families
+from .reference import pipeline
 
 
 def _meta(specs) -> dict:
@@ -17,15 +18,17 @@ def _meta(specs) -> dict:
             for name, shape, _, _ in specs}
 
 
-def forward_flops(frs: str, resolution: int, gallery_rows: int) -> float:
-    """FLOPs of one sample's forward: latent to its distances to
-    ``gallery_rows`` gallery rows."""
-    gen = _meta(stylegan.state_dict_specs(resolution))
-    frm = _meta(iresnet.state_dict_specs() if frs == "insightface"
-                else facenet.state_dict_specs())
-    w = torch.empty((1, 512), device="meta")
-    g = torch.empty((gallery_rows, 512), device="meta")
+def forward_flops(config: dict, gallery_rows: int) -> float:
+    """FLOPs of one sample's forward in configuration ``config`` (its
+    family files, resolution and gallery head): latent to its distances
+    to ``gallery_rows`` gallery rows."""
+    gen, frm = families.of(config)
+    res = config["resolution"]
+    gen_sd = _meta(gen.state_dict_specs(res))
+    frm_sd = _meta(frm.state_dict_specs())
+    w = torch.empty((1, gen.LATENT_DIM), device="meta")
+    g = torch.empty((gallery_rows, frm.EMBEDDING_DIM), device="meta")
     with FlopCounterMode(display=False) as counter:
-        e = pipeline.embed(gen, frm, frs, w, resolution)
-        pipeline.distances(frs, e, g)
+        e = pipeline.embed(gen, gen_sd, frm, frm_sd, w, res)
+        pipeline.distances(config["frs"], e, g)
     return float(counter.get_total_flops())

@@ -1,8 +1,10 @@
 """Everything a run makes from ``--seed``: the random weights (as
-torch-layout state dicts, drawn on the device in one call each), the
-identities' latents, the gallery's filler rows, the identities' noise
-generators and the choice of what the check compares. Each use draws from
-its own stream, so adding one leaves the others as they were."""
+torch-layout state dicts, drawn on the device in one call each, in the
+layout that the configuration's family files state), the streams of the
+identities' latents (drawn by the generator family), the gallery's filler
+rows, the identities' noise generators and the choice of what the check
+compares. Each use draws from its own stream, so adding one leaves the
+others as they were."""
 
 from __future__ import annotations
 
@@ -10,8 +12,6 @@ import math
 
 import numpy as np
 import torch
-
-from .reference import facenet, iresnet, stylegan
 
 # streams of one seed
 GEN_WEIGHTS, FRM_WEIGHTS, LATENTS, FILLER, CHOICE, WARMUP = range(6)
@@ -50,21 +50,15 @@ def state_dict(specs, seed: int, stream: int, device) -> dict:
     return out
 
 
-def generator_weights(resolution: int, seed: int, device) -> dict:
-    return state_dict(stylegan.state_dict_specs(resolution), seed,
-                      GEN_WEIGHTS, device)
+def generator_weights(gen, resolution: int, seed: int, device) -> dict:
+    """The state dict of generator family ``gen`` at ``resolution``."""
+    return state_dict(gen.state_dict_specs(resolution), seed, GEN_WEIGHTS,
+                      device)
 
 
-def frm_weights(frs: str, seed: int, device) -> dict:
-    specs = (iresnet.state_dict_specs() if frs == "insightface"
-             else facenet.state_dict_specs())
-    return state_dict(specs, seed, FRM_WEIGHTS, device)
-
-
-def latents(n: int, seed: int, device) -> torch.Tensor:
-    """Identities drawn in W: [n, 512] standard normal rows."""
-    return torch.randn((n, 512), generator=generator(seed, LATENTS, device),
-                       device=device)
+def frm_weights(frm, seed: int, device) -> dict:
+    """The state dict of FRM family ``frm``."""
+    return state_dict(frm.state_dict_specs(), seed, FRM_WEIGHTS, device)
 
 
 def to_numpy(sd: dict) -> dict:

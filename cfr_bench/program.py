@@ -1,8 +1,8 @@
 """The program under test, built from the benchmark's inputs: the
 configuration's weights made from the seed as torch-layout state dicts,
-handed to the port through its public converters (the reference keeps the
-state dicts), and the attribute directions from the benchmark's copy of
-InterFaceGAN's boundaries."""
+handed to the port through its generator and FRM family files
+(``families.py``; the reference keeps the state dicts), and the attribute
+directions from the benchmark's copy of the generator's boundaries."""
 
 from __future__ import annotations
 
@@ -12,44 +12,41 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from . import inputs
+from . import families, inputs
 from .reference import pipeline as ref
 
-BOUNDARIES = str(Path(__file__).resolve().parent / "data" / "boundaries")
+BOUNDARIES = Path(__file__).resolve().parent / "data" / "boundaries"
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
 def build(ctx) -> SimpleNamespace:
-    from certifyingfacerecognition_torch.models import (facenet, iresnet,
-                                                        stylegan)
-    from certifyingfacerecognition_torch.ops import geometry as G
-
+    """The program of the configuration: ``gen`` and ``frm`` its family
+    files, ``gen_params``, ``frm_params`` and ``region`` the program's, the
+    state dicts and ``dirs_ref`` the reference's. A configuration that
+    names a family with no file, or states other widths, is refused here,
+    before any weights are drawn."""
     cfg, dev, seed = ctx.config, ctx.device, ctx.seed
-    ref.check_widths(cfg)
-    res, frs = cfg["resolution"], cfg["frs"]
-    gen_sd = inputs.generator_weights(res, seed, dev)
-    frm_sd = inputs.frm_weights(frs, seed, dev)
-    gen_params = stylegan.convert_torch_state_dict(
-        inputs.to_numpy(gen_sd), res, device=dev)
-    if frs == "insightface":
-        frm_params = iresnet.convert_torch_state_dict(
-            inputs.to_numpy(frm_sd), cfg["frm_arch"], device=dev)
-    else:
-        frm_params = facenet.convert_torch_state_dict(
-            inputs.to_numpy(frm_sd), device=dev)
-    region = G.get_all_matrices(boundaries_dir=BOUNDARIES, device=dev)
+    gen, frm = families.of(cfg)
+    ref.check_widths(cfg, gen, frm)
+    res = cfg["resolution"]
+    gen_sd = inputs.generator_weights(gen, res, seed, dev)
+    frm_sd = inputs.frm_weights(frm, seed, dev)
+    gen_params = gen.to_program(inputs.to_numpy(gen_sd), res, dev)
+    frm_params = frm.to_program(inputs.to_numpy(frm_sd), dev)
     return SimpleNamespace(
-        res=res, frs=frs, dtype=DTYPES[cfg["dtype"]], gen_sd=gen_sd,
-        frm_sd=frm_sd, gen_params=gen_params, frm_params=frm_params,
-        region=region, dirs_ref=torch.as_tensor(
-            ref.directions(BOUNDARIES), dtype=torch.float64, device=dev))
+        res=res, frs=cfg["frs"], dtype=DTYPES[cfg["dtype"]], device=dev,
+        gen=gen, frm=frm, gen_sd=gen_sd, frm_sd=frm_sd,
+        gen_params=gen_params, frm_params=frm_params,
+        region=gen.region(dev, BOUNDARIES),
+        dirs_ref=torch.as_tensor(ref.directions(BOUNDARIES, gen.BOUNDARIES),
+                                 dtype=torch.float64, device=dev))
 
 
 def reference_embed(p, w: torch.Tensor, prec, rows: int) -> torch.Tensor:
     """Reference embeddings of latents ``w`` (any float dtype)."""
     with torch.no_grad():
-        return ref.embed(p.gen_sd, p.frm_sd, p.frs, w.float(), p.res, prec,
-                         rows=rows)
+        return ref.embed(p.gen, p.gen_sd, p.frm, p.frm_sd, w.float(), p.res,
+                         prec, rows=rows)
 
 
 def filler_rows(id_rows: torch.Tensor, xi: torch.Tensor, frs: str

@@ -5,65 +5,51 @@ Clopper-Pearson certificate and the attribute ellipsoid."""
 from __future__ import annotations
 
 import math
+from pathlib import Path
 from statistics import NormalDist
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import facenet, iresnet, stylegan
 from .precision import F32, Precision
 
-FRM_INPUT = {"insightface": 112, "facenet": 160, "facenet-vggface2": 160}
-FRM_ARCH = {"insightface": "iresnet50", "facenet": "inception_resnet_v1",
-            "facenet-vggface2": "inception_resnet_v1"}
-EMB_DIM = 512
 ATTRS = (("age", 0.5), ("eyeglasses", 0.5), ("gender", 0.2), ("pose", 0.5),
          ("smile", 0.8))
 
 
-def widths(resolution: int, frs: str) -> dict:
-    """The widths the reference builds at ``resolution`` for ``frs``,
+def widths(gen, frm, resolution: int) -> dict:
+    """The widths the reference builds at ``resolution`` with the generator
+    and FRM family files ``gen`` and ``frm`` (``cfr_bench/families.py``),
     under the keys of a configuration's file."""
-    return {"mapping_layers": stylegan.MAPPING_LAYERS,
-            "synthesis_layers": stylegan.num_layers(resolution),
-            "w_dim": stylegan.W_DIM,
-            "channels_max": stylegan.channels_at(4),
-            "channels_min": stylegan.channels_at(resolution),
-            "truncation_psi": stylegan.TRUNCATION_PSI,
-            "truncation_layers": stylegan.TRUNCATION_LAYERS,
-            "frm_arch": FRM_ARCH[frs], "frm_input": FRM_INPUT[frs],
-            "embedding_dim": EMB_DIM}
+    return {**gen.widths(resolution), **frm.widths()}
 
 
-def check_widths(config: dict) -> None:
+def check_widths(config: dict, gen, frm) -> None:
     """Refuse a configuration whose file states a width other than the
-    one that the reference, and the weights made for the program, have."""
-    want = widths(config["resolution"], config["frs"])
+    one that the reference, and the weights made for the program, have,
+    or a gallery head (``frs``) that its FRM does not serve."""
+    want = widths(gen, frm, config["resolution"])
     bad = {k: (config.get(k), v) for k, v in want.items()
            if config.get(k) != v}
+    if config.get("frs") not in frm.FRS:
+        bad["frs"] = (config.get("frs"), frm.FRS)
     if bad:
         raise ValueError(f"{config.get('name')}: (stated, built) {bad}")
 
 
-def frm_embed(frs: str, sd, x: torch.Tensor, prec: Precision = F32):
-    if frs == "insightface":
-        return iresnet.embed(sd, x, prec=prec)
-    return facenet.embed(sd, x, prec=prec)
-
-
-def embed(gen_sd, frm_sd, frs: str, w: torch.Tensor, resolution: int,
+def embed(gen, gen_sd, frm, frm_sd, w: torch.Tensor, resolution: int,
           prec: Precision = F32, rows: int = 8) -> torch.Tensor:
-    """Embeddings [B, 512] of latents W [B, 512], ``rows`` at a time (the
-    1024^2 float32 activations of a few rows fill a card)."""
+    """Embeddings [B, D] of latents [B, L] through the generator family
+    ``gen`` and the FRM family ``frm``, ``rows`` at a time (the 1024^2
+    float32 activations of a few rows fill a card)."""
     outs = []
-    size = FRM_INPUT[frs]
+    size = frm.INPUT
     for s in range(0, w.shape[0], rows):
-        img = prec.q(stylegan.synthesize(gen_sd, w[s:s + rows], resolution,
-                                         prec))
+        img = prec.q(gen.synthesize(gen_sd, w[s:s + rows], resolution, prec))
         x = prec.q(F.interpolate(img, size=(size, size), mode="bilinear",
                                  align_corners=False))
-        outs.append(frm_embed(frs, frm_sd, (x - 0.5) / 0.5, prec))
+        outs.append(frm.embed(frm_sd, (x - 0.5) / 0.5, prec))
     return torch.cat(outs)
 
 
@@ -117,11 +103,11 @@ def head_rounding(frs: str, e: torch.Tensor, g: torch.Tensor,
     return 2.0 * (gamma(n) * ne * ng + u * (1.0 + ne * ng))
 
 
-def directions(boundaries_dir: str) -> np.ndarray:
-    """The five InterFaceGAN attribute directions [5, 512] (float64)."""
-    return np.concatenate([np.load(
-        f"{boundaries_dir}/stylegan_ffhq_{a}_w_boundary.npy")
-        for a, _ in ATTRS], axis=0)
+def directions(boundaries_dir, files) -> np.ndarray:
+    """The five attribute directions [5, L] (float64) from a generator
+    family's boundary ``files`` (``BOUNDARIES``) under ``boundaries_dir``."""
+    return np.concatenate([np.load(Path(boundaries_dir) / f) for f in files],
+                          axis=0)
 
 
 def _mvee(points: np.ndarray, tol: float = 1e-3) -> np.ndarray:

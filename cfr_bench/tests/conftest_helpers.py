@@ -7,7 +7,7 @@ import time
 
 import torch
 
-from cfr_bench import harness
+from cfr_bench import families, harness
 from cfr_bench.reference import pipeline as ref
 
 TINY_TRAFFIC = {
@@ -24,9 +24,16 @@ def bench() -> dict:
 
 def tiny_cell(name: str, dtype: str = "f32", seed: int = 2 ** 31 + 7):
     """(ctx, driver) of cell ``name`` at 32^2 on the CPU."""
-    cell, config, traffic = harness.cell_spec(name, bench())
+    return tiny_ctx(*harness.cell_spec(name, bench()), dtype, seed)
+
+
+def tiny_ctx(cell: dict, config: dict, traffic: dict, dtype: str = "f32",
+             seed: int = 2 ** 31 + 7):
+    """(ctx, driver) of a cell's (entry, configuration, traffic) cut to
+    32^2 on the CPU: the configuration at the widths its families build
+    there, the traffic at TINY_TRAFFIC's sizes."""
     config = dict(config, resolution=32, dtype=dtype, env={},
-                  **ref.widths(32, config["frs"]))
+                  **ref.widths(*families.of(config), 32))
     traffic = dict(traffic, **TINY_TRAFFIC[traffic["kind"]])
     driver = harness.load_module(harness.HERE / "drivers"
                                  / f"{traffic['kind']}.py")

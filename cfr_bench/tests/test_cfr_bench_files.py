@@ -139,9 +139,12 @@ def test_nothing_in_the_benchmark_imports_jax():
 @pytest.mark.parametrize("entry", BENCH["configs"],
                          ids=[c["name"] for c in BENCH["configs"]])
 def test_config_widths_are_those_the_reference_builds(entry):
+    from cfr_bench import families
     from cfr_bench.reference import pipeline as ref
 
     data = harness.load_json(harness.CHECKOUT / entry["file"])
-    ref.check_widths(data)
+    gen, frm = families.of(data)
+    ref.check_widths(data, gen, frm)
     with pytest.raises(ValueError, match="channels_min"):
-        ref.check_widths(dict(data, channels_min=2 * data["channels_min"]))
+        ref.check_widths(dict(data, channels_min=2 * data["channels_min"]),
+                         gen, frm)

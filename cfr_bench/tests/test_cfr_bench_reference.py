@@ -6,18 +6,22 @@ import pytest
 import torch
 from scipy.stats import beta, norm
 
-from cfr_bench import inputs, program
+from cfr_bench import families, inputs, program
 from cfr_bench.reference import facenet, iresnet, pipeline, stylegan
 from cfr_bench.reference.precision import F32, FP8
+
+GEN = families.load("generator", "stylegan_ffhq")
+FRMS = {"insightface": families.load("frm", "iresnet50"),
+        "facenet": families.load("frm", "inception_resnet_v1")}
 
 
 @pytest.fixture(scope="module")
 def weights():
     dev = torch.device("cpu")
-    return {"gen": inputs.generator_weights(32, 5, dev),
-            "insightface": inputs.frm_weights("insightface", 5, dev),
-            "facenet": inputs.frm_weights("facenet", 5, dev),
-            "w": inputs.latents(3, 5, dev)}
+    return {"gen": inputs.generator_weights(GEN, 32, 5, dev),
+            "insightface": inputs.frm_weights(FRMS["insightface"], 5, dev),
+            "facenet": inputs.frm_weights(FRMS["facenet"], 5, dev),
+            "w": GEN.latents(3, 5, dev)}
 
 
 def test_stylegan_synthesis_matches_the_program(weights):
@@ -46,15 +50,16 @@ def test_embeddings_match_the_program(weights, frs):
            if frs == "insightface" else
            PF.convert_torch_state_dict(sd, device="cpu"))
     want = make_lat2embs(frs, 32)(gen, frm, weights["w"])
-    got = pipeline.embed(weights["gen"], weights[frs], frs, weights["w"], 32)
+    got = pipeline.embed(GEN, weights["gen"], FRMS[frs], weights[frs],
+                         weights["w"], 32)
     assert float(program.rel_err(got, want).max()) < 1e-4
 
 
 def test_float8_control_departs_from_float32(weights):
-    e32 = pipeline.embed(weights["gen"], weights["insightface"],
-                         "insightface", weights["w"], 32, F32)
-    e8 = pipeline.embed(weights["gen"], weights["insightface"],
-                        "insightface", weights["w"], 32, FP8)
+    e32 = pipeline.embed(GEN, weights["gen"], FRMS["insightface"],
+                         weights["insightface"], weights["w"], 32, F32)
+    e8 = pipeline.embed(GEN, weights["gen"], FRMS["insightface"],
+                        weights["insightface"], weights["w"], 32, FP8)
     err = float(program.rel_err(e8, e32).max())
     assert 1e-2 < err < 1.0
 
@@ -80,12 +85,12 @@ def test_certificate_from_answers():
 def test_ellipse_and_directions_match_the_program():
     from certifyingfacerecognition_torch.ops import geometry as G
 
-    region = G.get_all_matrices(boundaries_dir=program.BOUNDARIES)
+    region = G.get_all_matrices(boundaries_dir=str(program.BOUNDARIES))
     np.testing.assert_array_equal(
         np.float32(pipeline.attribute_ellipse_diag()),
         region.red_ellipse_diag.numpy())
     np.testing.assert_array_equal(
-        np.float32(pipeline.directions(program.BOUNDARIES)),
+        np.float32(pipeline.directions(program.BOUNDARIES, GEN.BOUNDARIES)),
         region.dirs.t().numpy())
 
 
@@ -104,9 +109,9 @@ def test_state_dict_layouts_are_the_checkpoints():
 
 def test_inputs_repeat_from_a_large_seed():
     seed = 2 ** 31 + 123456789
-    a = inputs.latents(4, seed, torch.device("cpu"))
-    b = inputs.latents(4, seed, torch.device("cpu"))
-    c = inputs.latents(4, seed + 1, torch.device("cpu"))
+    a = GEN.latents(4, seed, torch.device("cpu"))
+    b = GEN.latents(4, seed, torch.device("cpu"))
+    c = GEN.latents(4, seed + 1, torch.device("cpu"))
     assert torch.equal(a, b) and not torch.equal(a, c)
 
 

@@ -2,7 +2,10 @@
 
 import pytest
 
-from cfr_bench import flops, roofline
+from cfr_bench import flops, harness, roofline
+
+R50 = harness.load_json(harness.HERE / "configs"
+                        / "stylegan-ffhq1024-arcface-r50.json")
 
 
 def test_tail_layers_of_the_1024_model():
@@ -39,8 +42,8 @@ def test_share_refuses_nothing_measured():
 def test_forward_flops_count_the_reference():
     # the 1024^2 synthesis dominates (the issue's 77.9 GFLOP per sample);
     # the gallery head adds 2 x 512 FLOPs a row
-    total = flops.forward_flops("insightface", 1024, 10000)
+    total = flops.forward_flops(R50, 10000)
     assert 70e9 < total < 85e9
-    more = flops.forward_flops("insightface", 1024, 20000)
+    more = flops.forward_flops(R50, 20000)
     assert more - total == 2 * 512 * 10000
-    assert flops.forward_flops("insightface", 32, 1) < total / 2
+    assert flops.forward_flops(dict(R50, resolution=32), 1) < total / 2
