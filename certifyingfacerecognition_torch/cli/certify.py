@@ -6,7 +6,10 @@ device by default (--device cpu runs on the CPU), or on several with
 --mesh: one process per device, run by torchrun or with --multihost.
 
 Same flags, defaults and TSV schema (``idx label predict correct gap radius
-time``, one row appended per identity) as the JAX CLI:
+time``, one row appended per identity) as the JAX CLI, plus --model-name
+(the generator, as cfr-generate-data-torch -m names it: its weights, its
+synthesis, its latents ``w.npy`` or, for PGGAN, ``z.npy`` in --data-dir,
+and its W or Z boundaries) and --device:
   * anisotropic sigma = --sigma * red_ellipse_diag^{-1};
   * radius = sigma.min() * gap;
   * --skip/--max striding (with the reference's (i+1) arithmetic), then the
@@ -34,6 +37,7 @@ from ..ops import geometry as G
 from ..smoothing.certificate import L2Certificate
 from ..smoothing.smooth import Smooth, identity_generator
 from ..utils import weights as W
+from . import opts
 
 TSV_HEADER = "idx\tlabel\tpredict\tcorrect\tgap\tradius\ttime"
 
@@ -69,6 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "many contiguous chunks")
     parser.add_argument("--num-chunk", type=int, default=0,
                         help="which chunk this job certifies (0-based)")
+    opts.add_model_name(parser)
     parser.add_argument("--gen-weights", type=str, default="random")
     parser.add_argument("--frm-weights", type=str, default="random")
     parser.add_argument("--data-dir", type=str,
@@ -239,6 +244,9 @@ def resumed_ids(outfile: str, num_classes: int, device) -> set:
 
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
+    opts.refuse_stylegan_only(args, (("synthesis_resolution",
+                                      "--synthesis-resolution"),
+                                     ("cascade", "--cascade")))
     device = args.device
     distributed = args.mesh or args.multihost
     mesh = None
@@ -266,11 +274,13 @@ def _certify(args, device, mesh) -> None:
     # every rank runs the whole loop (the certifications are collective
     # over the group); rank 0 alone writes the TSV
     is_writer = not dist.is_initialized() or dist.get_rank() == 0
-    region = G.get_all_matrices(boundaries_dir=args.boundaries_dir)
+    region = G.get_all_matrices(boundaries_dir=args.boundaries_dir,
+                                model_name=args.model_name)
     dirs = region.dirs.T                       # [k, 512] rows
     num_dirs = dirs.shape[0]
 
-    dataset = np.load(osp.join(args.data_dir, "w.npy"), mmap_mode="r")
+    dataset = np.load(opts.latents_file(args.data_dir, args.model_name),
+                      mmap_mode="r")
     dataset = dataset[: args.load_n_embs]
     gallery = load_gallery(args, args.synthesis_resolution, args.embs_file)
     assert len(gallery) == len(dataset), \
@@ -292,7 +302,7 @@ def _certify(args, device, mesh) -> None:
                              "--cascade")
 
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    gen_params = W.load_generator_params(args.gen_weights,
+    gen_params = W.load_generator_params(args.gen_weights, args.model_name,
                                          resolution=args.resolution,
                                          device=device)
     frm_params = W.load_frm_params(args.frm_weights, args.face_recog_model,
@@ -319,7 +329,7 @@ def _certify(args, device, mesh) -> None:
                             frs_method=args.face_recog_model,
                             resolution=resolution, dtype=dtype,
                             gallery=torch.as_tensor(gallery_arr),
-                            device=device)
+                            device=device, generator=args.model_name)
         predict_fn, params = pipe.predict_fn_with_params(mesh, offset)
         return Smooth(predict_fn, num_classes, sigma, L2Certificate(),
                       noise_dim=num_dirs, batch_size=args.batch_sz,

@@ -28,17 +28,12 @@ from time import time
 import numpy as np
 import torch
 
-from ..constants import STYLEGAN_TRUNCATION_LAYERS, STYLEGAN_TRUNCATION_PSI
+from ..constants import (MODEL_POOL, STYLEGAN_TRUNCATION_LAYERS,
+                         STYLEGAN_TRUNCATION_PSI)
 from ..utils import weights as W
 from ..utils.device import f32_exact_math, resolve_device
 from ..utils.logger import close_logger, setup_logger
 from ..utils.png import write_png
-
-MODEL_POOL = {
-    "stylegan_ffhq": {"resolution": 1024, "gan_type": "stylegan"},
-    "stylegan_celebahq": {"resolution": 1024, "gan_type": "stylegan"},
-    "pggan_celebahq": {"resolution": 1024, "gan_type": "pggan"},
-}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..constants import EMB_SIZE
+from ..constants import DEFAULT_MODEL, EMB_SIZE
 from ..eval.chunk_runner import (_make_attack_step, eval_chunk, eval_files,
                                  make_dists_fn, make_predict_fn)
 from ..models.pipeline import FacePipeline
@@ -41,9 +41,12 @@ from ..utils import profiling
 from ..utils import weights as W
 from . import opts
 
-def get_latent_codes(data_dir: str, n: int = None) -> np.ndarray:
-    """The w.npy latent array."""
-    lats = np.load(osp.join(data_dir, "w.npy")).astype(np.float32)
+
+def get_latent_codes(data_dir: str, n: int = None,
+                     model_name: str = DEFAULT_MODEL) -> np.ndarray:
+    """The latent array of generator ``model_name`` (w.npy; z.npy for
+    PGGAN)."""
+    lats = np.load(opts.latents_file(data_dir, model_name)).astype(np.float32)
     return lats[:n] if n else lats
 
 
@@ -78,6 +81,8 @@ def get_embs(args, pipeline: FacePipeline, lat_codes: np.ndarray,
 
 def main(argv=None) -> None:
     args = opts.build_parser().parse_args(argv)
+    opts.refuse_stylegan_only(args, (("synthesis_resolution",
+                                      "--synthesis-resolution"),))
     distributed = args.mesh or args.multihost
     if distributed:
         from ..parallel.mesh import init_distributed
@@ -114,10 +119,12 @@ def _attack(args, is_writer: bool) -> None:
     region = G.get_all_matrices(args.attrs2drop,
                                 scale_factor=args.scale_factor,
                                 boundaries_dir=args.boundaries_dir,
-                                device=device)
-    lat_codes = get_latent_codes(args.data_dir, args.load_n_embs)
+                                device=device,
+                                model_name=args.model_name)
+    lat_codes = get_latent_codes(args.data_dir, args.load_n_embs,
+                                 args.model_name)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
-    gen_params = W.load_generator_params(args.gen_weights,
+    gen_params = W.load_generator_params(args.gen_weights, args.model_name,
                                          resolution=args.resolution,
                                          device=device)
     frm_params = W.load_frm_params(args.frm_weights, args.face_recog_method,
@@ -125,7 +132,8 @@ def _attack(args, is_writer: bool) -> None:
     syn_res = args.synthesis_resolution or args.resolution
     pipeline = FacePipeline(gen_params, frm_params, dirs=region.dirs.t(),
                             frs_method=args.face_recog_method,
-                            resolution=syn_res, dtype=dtype, device=device)
+                            resolution=syn_res, dtype=dtype, device=device,
+                            generator=args.model_name)
     # a plain tensor, not an inference-mode one: the attack differentiates
     # against it
     gallery = torch.as_tensor(get_embs(args, pipeline, lat_codes, is_writer),
@@ -135,9 +143,11 @@ def _attack(args, is_writer: bool) -> None:
     # Without --num-chunk every chunk runs in turn, then the aggregation.
     chunks_to_run = ([args.num_chunk] if args.num_chunk is not None
                      else range(args.chunks))
-    dists_fn = make_dists_fn(args.face_recog_method, syn_res, dtype)
+    dists_fn = make_dists_fn(args.face_recog_method, syn_res, dtype,
+                             generator=args.model_name)
     attack_step = _make_attack_step(dists_fn, region, args)
-    predict_fn = make_predict_fn(args.face_recog_method, syn_res, dtype)
+    predict_fn = make_predict_fn(args.face_recog_method, syn_res, dtype,
+                                 generator=args.model_name)
     # in a process group rank 0 alone traces
     tracing = args.profile_dir and is_writer
     with (profiling.trace(args.profile_dir) if tracing

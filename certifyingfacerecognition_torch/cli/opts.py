@@ -1,5 +1,6 @@
 """Attack CLI flags (port of certifyingfacerecognition_tpu/cli/opts.py):
-the same flags and defaults, plus --device."""
+the same flags and defaults, plus --device and --model-name (the
+generator, as cfr-generate-data-torch -m names it)."""
 
 from __future__ import annotations
 
@@ -7,8 +8,35 @@ import argparse
 import os
 import os.path as osp
 
-from ..constants import ATTACKS, ATTRS, FRS_METHODS, LOSS_TYPES, OPTIMS
+from ..constants import (ATTACKS, ATTRS, DEFAULT_MODEL, FRS_METHODS,
+                         LOSS_TYPES, MODEL_POOL, OPTIMS)
 from ..utils.logger import args2text, print_to_log, setup_logger
+
+
+def add_model_name(parser: argparse.ArgumentParser) -> None:
+    """--model-name, the generator of both CLIs."""
+    parser.add_argument("--model-name", type=str, default=DEFAULT_MODEL,
+                        choices=list(MODEL_POOL),
+                        help="Generator (cfr-generate-data-torch -m): its "
+                             "weights, synthesis, latents (w.npy; z.npy for "
+                             "pggan_*) and W or Z boundaries")
+
+
+def latents_file(data_dir: str, model_name: str) -> str:
+    """The latent codes of generator ``model_name`` in ``data_dir``: w.npy
+    (StyleGAN's W), z.npy (PGGAN's Z)."""
+    return osp.join(data_dir, f"{MODEL_POOL[model_name]['space']}.npy")
+
+
+def refuse_stylegan_only(args, flags) -> None:
+    """Exit with a message when a StyleGAN-only option (``flags``: (dest,
+    --flag) pairs) is set for another generator."""
+    if MODEL_POOL[args.model_name]["gan_type"] == "stylegan":
+        return
+    for dest, flag in flags:
+        if getattr(args, dest):
+            raise SystemExit(f"{flag} is StyleGAN's alone; {args.model_name} "
+                             "synthesizes at --resolution")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,14 +86,17 @@ def build_parser() -> argparse.ArgumentParser:
                         help="Load embs from this file")
     parser.add_argument("--seed", type=int, default=0,
                         help="for deterministic behavior")
+    add_model_name(parser)
     parser.add_argument("--gen-weights", type=str, default="random",
-                        help=".npz/.pth StyleGAN weights, or 'random[:seed]'")
+                        help=".npz/.pth generator weights, or "
+                             "'random[:seed]'")
     parser.add_argument("--frm-weights", type=str, default="random",
                         help=".npz/.pth FRM weights, or 'random[:seed]'")
     parser.add_argument("--data-dir", type=str,
                         default=os.environ.get("CFR_DATA_DIR",
                                                "data/stylegan_ffhq_1M"),
-                        help="Directory with w.npy latent codes")
+                        help="Directory with w.npy latent codes (z.npy "
+                             "for pggan_*)")
     parser.add_argument("--boundaries-dir", type=str, default=None,
                         help="InterFaceGAN boundary .npy directory")
     parser.add_argument("--batch-size", type=int, default=48,

@@ -39,6 +39,20 @@ DATASET = "ffhq"
 GAN_NAME = "stylegan"
 IMAGE_EXT = "png"
 
+# The generators that the CLIs name (-m / --model-name): each one's
+# synthesis resolution, family, training set and the latent space of its
+# identities and attribute directions (StyleGAN's W, PGGAN's Z: no
+# mapping network).
+MODEL_POOL = {
+    "stylegan_ffhq": {"resolution": 1024, "gan_type": "stylegan",
+                      "dataset": "ffhq", "space": "w"},
+    "stylegan_celebahq": {"resolution": 1024, "gan_type": "stylegan",
+                          "dataset": "celebahq", "space": "w"},
+    "pggan_celebahq": {"resolution": 1024, "gan_type": "pggan",
+                       "dataset": "celebahq", "space": "z"},
+}
+DEFAULT_MODEL = "stylegan_ffhq"
+
 # StyleGAN inference settings.
 STYLEGAN_TRUNCATION_PSI = 0.7
 STYLEGAN_TRUNCATION_LAYERS = 8

@@ -33,8 +33,8 @@ from ..attacks.autoattack import (AttackResult, find_adversaries_autoattack,
 from ..attacks.checks import run_all_checks
 from ..attacks.losses import compute_loss
 from ..attacks.pgd import assert_deltas_feasible, find_adversaries_pgd
-from ..constants import ATTRS
-from ..models.pipeline import make_lat2embs
+from ..constants import ATTRS, DEFAULT_MODEL
+from ..models.pipeline import make_lat2embs, synthesize
 from ..ops import distances as D
 from ..ops import geometry as G
 from ..utils.profiling import span
@@ -42,16 +42,19 @@ from . import artifacts, ranking
 
 
 def make_dists_fn(frs_method: str, resolution: int, dtype=torch.float32,
-                  remat: bool = True) -> Callable:
+                  remat: bool = True, generator: str = DEFAULT_MODEL
+                  ) -> Callable:
     """dists(params, w [B, 512]) -> [B, N] differentiable gallery
-    distances; params = {gen, frm, gallery}.
+    distances; params = {gen, frm, gallery}; ``w`` in the latent space of
+    ``generator`` (models/pipeline.make_lat2embs).
 
     With ``remat`` and grad enabled the generator + FRM forward is
     recomputed in the backward pass (one checkpoint around the whole
     function): keeping every 1024^2 synthesis activation for the gradient
     costs O(batch x depth) memory; recomputing costs one extra forward.
     remat=False keeps the activations instead."""
-    embed = make_lat2embs(frs_method, resolution, dtype=dtype)
+    embed = make_lat2embs(frs_method, resolution, dtype=dtype,
+                          generator=generator)
 
     def dists(params, w):
         embs = embed(params["gen"], params["frm"], w).float()
@@ -69,11 +72,12 @@ def make_dists_fn(frs_method: str, resolution: int, dtype=torch.float32,
     return remat_dists
 
 
-def make_predict_fn(frs_method: str, resolution: int, dtype=torch.float32
-                    ) -> Callable:
+def make_predict_fn(frs_method: str, resolution: int, dtype=torch.float32,
+                    generator: str = DEFAULT_MODEL) -> Callable:
     """Exact identity prediction predict(params, w) -> [B] (the
     exact-refined argmin, forward only)."""
-    embed = make_lat2embs(frs_method, resolution, dtype=dtype)
+    embed = make_lat2embs(frs_method, resolution, dtype=dtype,
+                          generator=generator)
 
     def predict(params, w):
         with torch.inference_mode():
@@ -323,8 +327,6 @@ def _plot_advs(params, chunk_lats, deltas, successes, all_labels, adv_preds,
         from PIL import Image
     except ImportError:
         return
-    from ..models import stylegan
-
     succ_idx = np.nonzero(successes)[0][:max_figs]
     if succ_idx.size == 0:
         return
@@ -343,8 +345,8 @@ def _plot_advs(params, chunk_lats, deltas, successes, all_labels, adv_preds,
             for s in range(0, len(w), bs):
                 b = torch.as_tensor(np.asarray(w[s:s + bs], np.float32),
                                     device=device)
-                img = stylegan.synthesize_from_w(params["gen"], b,
-                                                 resolution=args.resolution)
+                img = synthesize(args.model_name, params["gen"], b,
+                                 resolution=args.resolution)
                 outs.append(img.permute(0, 2, 3, 1).float().cpu().numpy())
         return np.concatenate(outs)
 

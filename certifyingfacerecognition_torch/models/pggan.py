@@ -8,6 +8,11 @@ normalised onto the sqrt(512) sphere before synthesis. Parameters are
 the JAX package's tree (HWIO kernels), activations NCHW. The
 convolutions are ordinary cuDNN ones: the JAX package runs them outside
 any Pallas kernel.
+
+Spans (utils/profiling.span): ``synthesis.pggan_low`` over the blocks up
+to 256^2, ``synthesis.pggan_high`` over the 512^2 and 1024^2 blocks and
+the ToRGB head; the Z normalisation and the postprocess fall outside
+both.
 """
 
 from __future__ import annotations
@@ -22,9 +27,11 @@ from . import nn
 # PGGAN's channel table and layer count are StyleGAN's
 from .stylegan import RESOLUTIONS_TO_CHANNELS, num_layers, postprocess
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from ..utils.weights import to_torch
 
 LATENT_DIM = 512
+HIGH_MIN_RES = 512           # the blocks from here up are pggan_high's
 
 
 def preprocess_z(z: torch.Tensor) -> torch.Tensor:
@@ -57,8 +64,22 @@ def apply(params: Dict, z: torch.Tensor, *, resolution: int,
     """z [B, 512] (already normalised) -> image [B, 3, H, W] in [-1, 1]."""
     channels = RESOLUTIONS_TO_CHANNELS[resolution]
     x = z.to(dtype)[:, :, None, None]                  # [B, 512, 1, 1]
+    # block bi outputs 2^(bi+1); the first of pggan_high's blocks
+    high = min(len(channels), int(math.log2(HIGH_MIN_RES)) - 1)
+    with span("synthesis.pggan_low"):
+        x = _blocks(params, x, 1, high, dtype)
+    with span("synthesis.pggan_high"):
+        x = _blocks(params, x, high, len(channels), dtype)
+        return _conv_block(params[f"output{len(channels) - 2}"], x,
+                           padding=0, upsample=False, gain=1.0,
+                           lrelu_act=False, dtype=dtype)
+
+
+def _blocks(params: Dict, x: torch.Tensor, start: int, stop: int, dtype
+            ) -> torch.Tensor:
+    """Blocks start..stop-1, each an (up-)conv and a conv."""
     gain = math.sqrt(2.0)
-    for block_idx in range(1, len(channels)):
+    for block_idx in range(start, stop):
         li = 2 * block_idx - 2
         first = block_idx == 1
         x = _conv_block(params[f"layer{li}"], x, padding=3 if first else 1,
@@ -67,8 +88,7 @@ def apply(params: Dict, z: torch.Tensor, *, resolution: int,
         x = _conv_block(params[f"layer{li + 1}"], x, padding=1,
                         upsample=False, gain=gain, lrelu_act=True,
                         dtype=dtype)
-    return _conv_block(params[f"output{len(channels) - 2}"], x, padding=0,
-                       upsample=False, gain=1.0, lrelu_act=False, dtype=dtype)
+    return x
 
 
 def synthesize_from_z(params: Dict, z: torch.Tensor, *, resolution: int,

@@ -4,9 +4,15 @@ certifyingfacerecognition_tpu/models/pipeline.py):
     w -> truncation -> synthesis -> [0,1] postprocess -> bilinear resize ->
     normalise -> FRS -> embeddings (-> exact nearest gallery identity)
 
+The generator is named as the CLIs name it (constants.MODEL_POOL):
+StyleGAN (the default, latents in W) as above, or PGGAN (latents in Z:
+normalisation onto the sqrt(512) sphere -> synthesis -> postprocess,
+into the same resize and FRS).
+
 Spans (utils/profiling.span): ``frm`` over the resize, normalisation and
 backbone, ``gallery_head`` over the nearest-identity search; the
-synthesis's own are in models/stylegan.synthesis_apply.
+synthesis's own are in models/stylegan.synthesis_apply and
+models/pggan.apply.
 """
 
 from __future__ import annotations
@@ -17,8 +23,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from . import facenet, iresnet, stylegan
-from ..constants import INP_RESOLS, MEAN, STD
+from . import facenet, iresnet, pggan, stylegan
+from ..constants import DEFAULT_MODEL, INP_RESOLS, MEAN, MODEL_POOL, STD
 from ..ops import distances as D
 from ..ops import geometry as G
 from ..ops.resize import transform_for_frs, transform_for_frs_cb
@@ -34,15 +40,42 @@ def frm_apply(frs_method: str, frm_params: Dict, x: torch.Tensor, *,
     return facenet.apply(frm_params, x, dtype=dtype)
 
 
-def make_lat2embs(frs_method: str, resolution: int, dtype=torch.float32
-                  ) -> Callable:
-    """embed(gen_params, frm_params, w [B, 512]) -> [B, 512]."""
+def gan_type(generator: str) -> str:
+    """'stylegan' or 'pggan': the family of the generator ``generator``
+    (a name of constants.MODEL_POOL)."""
+    if generator not in MODEL_POOL:
+        raise ValueError(f"unknown generator {generator!r}; known: "
+                         f"{', '.join(MODEL_POOL)}")
+    return MODEL_POOL[generator]["gan_type"]
+
+
+def synthesize(generator: str, gen_params: Dict, lat: torch.Tensor, *,
+               resolution: int, dtype=torch.float32, cb_out: bool = False
+               ) -> torch.Tensor:
+    """Latents [B, 512] in the generator's own space -> [B, 3, H, W]
+    images in [0, 1] (or StyleGAN's chain-tail [3, H, W, B] with
+    ``cb_out``)."""
+    if gan_type(generator) == "pggan":
+        if cb_out:
+            raise ValueError(f"{generator}: cb_out is the StyleGAN chain "
+                             "tail's layout")
+        return pggan.synthesize_from_z(gen_params, lat, resolution=resolution,
+                                       dtype=dtype)
+    return stylegan.synthesize_from_w(gen_params, lat, resolution=resolution,
+                                      dtype=dtype, cb_out=cb_out)
+
+
+def make_lat2embs(frs_method: str, resolution: int, dtype=torch.float32,
+                  generator: str = DEFAULT_MODEL) -> Callable:
+    """embed(gen_params, frm_params, w [B, 512]) -> [B, 512]; ``w`` is a
+    latent of the generator ``generator`` (W for StyleGAN, Z for PGGAN)."""
     img_size = INP_RESOLS[frs_method]
-    use_cb = stylegan.cb_out_active(resolution, dtype)
+    use_cb = (gan_type(generator) == "stylegan"
+              and stylegan.cb_out_active(resolution, dtype))
 
     def embed(gen_params, frm_params, w):
-        img = stylegan.synthesize_from_w(gen_params, w, resolution=resolution,
-                                         dtype=dtype, cb_out=use_cb)
+        img = synthesize(generator, gen_params, w, resolution=resolution,
+                         dtype=dtype, cb_out=use_cb)
         with span("frm"):
             if use_cb:
                 x = transform_for_frs_cb(img, img_size, MEAN, STD)
@@ -56,7 +89,8 @@ def make_lat2embs(frs_method: str, resolution: int, dtype=torch.float32
 @dataclass
 class FacePipeline:
     """Bundled generator + FRS + gallery, and the smoothed base
-    classifier over the perturbed latents w = z + p @ dirs: ``logits(z,
+    classifier over the perturbed latents w = z + p @ dirs (in the
+    latent space of ``generator``): ``logits(z,
     p)`` the negative gallery distances, ``probs`` their softmax(-d /
     sqrt(512)), ``predict`` the exact argmin-distance identity. Parameters,
     directions and gallery are moved to ``device``; ``lat2embs`` and the
@@ -72,6 +106,7 @@ class FacePipeline:
     dtype: torch.dtype = torch.float32
     gallery: Optional[torch.Tensor] = None  # [N, 512] identity embeddings
     device: object = "cuda"
+    generator: str = DEFAULT_MODEL         # a name of MODEL_POOL
     embed_fn: Callable = field(init=False)
 
     def __post_init__(self):
@@ -87,7 +122,7 @@ class FacePipeline:
             self.gallery = torch.as_tensor(self.gallery, dtype=torch.float32,
                                            device=self.device)
         self.embed_fn = make_lat2embs(self.frs_method, self.resolution,
-                                      self.dtype)
+                                      self.dtype, self.generator)
 
     def lat2embs(self, w, chunk: int = 0) -> torch.Tensor:
         """Embed latent codes [N, 512] (forward only); with ``chunk``, in

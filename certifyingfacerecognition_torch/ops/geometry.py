@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..constants import ATTRS
+from ..constants import ATTRS, DEFAULT_MODEL, MODEL_POOL
 
 # Bisection bracket and length of the JAX package: [float eps, 1e3], 64
 # halvings.
@@ -299,25 +299,39 @@ def default_boundaries_dir() -> str:
             return c
     raise FileNotFoundError(
         "No boundaries directory found; set CFR_BOUNDARIES_DIR or create "
-        "./boundaries with {gan}_{dataset}_{attr}_w_boundary.npy files "
+        "./boundaries with {gan}_{dataset}_{attr}[_w]_boundary.npy files "
         "(the vendored copies should be at " + vendored + ")")
+
+
+def boundary_file(gan_name: str, dataset: str, attr: str,
+                  latent_space: str = "w") -> str:
+    """InterFaceGAN's name of a boundary: ``{gan}_{dataset}_{attr}_w_
+    boundary.npy`` in W, ``{gan}_{dataset}_{attr}_boundary.npy`` in Z."""
+    if latent_space not in ("w", "z"):
+        raise ValueError(f"no boundaries in latent space {latent_space!r}")
+    suffix = "_w" if latent_space == "w" else ""
+    return f"{gan_name}_{dataset}_{attr}{suffix}_boundary.npy"
 
 
 def get_projection_matrices(dataset: str = "ffhq", gan_name: str = "stylegan",
                             attrs2drop: Sequence[str] = (),
                             scale_factor: float = 1.0,
-                            boundaries_dir: Optional[str] = None):
+                            boundaries_dir: Optional[str] = None,
+                            latent_space: str = "w"):
     """(proj_mat [512,512], ellipse_mat [512,512], dirs [512,k],
-    red_ellipse_diag [k], files), memoised per process."""
+    red_ellipse_diag [k], files), memoised per process; the boundaries of
+    ``gan_name`` trained on ``dataset`` in ``latent_space``
+    (boundary_file)."""
     return _get_projection_matrices_impl(
         dataset, gan_name, tuple(attrs2drop), float(scale_factor),
-        boundaries_dir or default_boundaries_dir())
+        boundaries_dir or default_boundaries_dir(), latent_space)
 
 
 @lru_cache(maxsize=8)
 def _get_projection_matrices_impl(dataset: str, gan_name: str,
                                   attrs2drop: Tuple[str, ...],
-                                  scale_factor: float, boundaries_dir: str):
+                                  scale_factor: float, boundaries_dir: str,
+                                  latent_space: str = "w"):
     attrs = dict(ATTRS)
     for attr in attrs2drop:
         assert attr in attrs, f"Attribute {attr} is NOT valid"
@@ -325,8 +339,8 @@ def _get_projection_matrices_impl(dataset: str, gan_name: str,
 
     dirs, files, magns = [], [], []
     for att_name, magn in attrs.items():
-        fname = osp.join(boundaries_dir,
-                         f"{gan_name}_{dataset}_{att_name}_w_boundary.npy")
+        fname = osp.join(boundaries_dir, boundary_file(
+            gan_name, dataset, att_name, latent_space))
         assert osp.isfile(fname), f'Boundary for attr "{att_name}" not found!'
         dirs.append(np.load(fname))
         magns.append(magn)
@@ -360,11 +374,16 @@ class RegionMatrices:
 
 
 def get_all_matrices(attrs2drop: Sequence[str] = (), scale_factor: float = 1.0,
-                     boundaries_dir: Optional[str] = None, device="cpu"
-                     ) -> RegionMatrices:
+                     boundaries_dir: Optional[str] = None, device="cpu",
+                     model_name: str = DEFAULT_MODEL) -> RegionMatrices:
+    """The region matrices on ``device`` from the boundaries of the
+    generator ``model_name`` (constants.MODEL_POOL: its family, training
+    set and latent space; the default, StyleGAN FFHQ's W boundaries)."""
+    m = MODEL_POOL[model_name]
     proj_mat, ellipse_mat, dirs, red_diag, _ = get_projection_matrices(
-        attrs2drop=attrs2drop, scale_factor=scale_factor,
-        boundaries_dir=boundaries_dir)
+        dataset=m["dataset"], gan_name=m["gan_type"], attrs2drop=attrs2drop,
+        scale_factor=scale_factor, boundaries_dir=boundaries_dir,
+        latent_space=m["space"])
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),  # noqa: E731
                                     device=device)
     return RegionMatrices(

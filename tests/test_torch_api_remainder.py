@@ -224,16 +224,18 @@ def test_setup_logger_logfile_name(mod, tmp_path):
 
 def test_parse_args_matches_jax(tmp_path, monkeypatch):
     """Every field of the JAX parse_args's namespace, LOGGER and the port's
-    own device aside; the two runs write under different --output-dirs
-    (the logger name follows it), so their paths are compared with the
-    name swapped."""
+    own device and model_name (the generator, default stylegan_ffhq, the
+    JAX CLI's only one) aside; the two runs write under different
+    --output-dirs (the logger name follows it), so their paths are
+    compared with the name swapped."""
     monkeypatch.chdir(tmp_path)
     argv = ["--attack-type", "apgd-t", "--num-chunk", "1", "--chunks", "4",
             "--iters", "7", "--mesh", "--dtype", "bf16"]
     want = vars(jopts.parse_args(["--output-dir", "api_rem_jax"] + argv))
     got = vars(topts.parse_args(["--output-dir", "api_rem_torch"] + argv))
     try:
-        assert set(got) - {"device"} == set(want)
+        assert set(got) - {"device", "model_name"} == set(want)
+        assert got["model_name"] == "stylegan_ffhq"
         for key, value in want.items():
             if key == "LOGGER":
                 continue
